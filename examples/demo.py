@@ -1,9 +1,9 @@
 """End-to-end demo: every major subsystem in ~80 lines.
 
-Run: python examples/demo.py [out_dir]
+Run: python examples/demo.py [out_dir]     (default: demo_out/ in the checkout)
 
-1. Renders a chirp through the production pipeline (fused kernels) and the
-   golden CPU-law model side by side.
+1. Renders a chirp through the production pipeline and the golden CPU-law
+   model side by side.
 2. Runs a 64-stream batch with per-stream palettes.
 3. Shows the oscilloscope envelope and spectrum-analyzer levels.
 4. Saves/loads a checkpoint mid-stream.
@@ -25,9 +25,14 @@ from spectrogram_tpu.models.spectrogram import SpectrogramPipeline
 from spectrogram_tpu.models.spectrum_analyzer import SpectrumAnalyzer
 from spectrogram_tpu.ops import stft as stft_ops
 from spectrogram_tpu.utils import checkpoint
+from spectrogram_tpu.utils.compile_cache import enable_compile_cache
 from spectrogram_tpu.utils.image import save_png
 
-out_dir = pathlib.Path(sys.argv[1] if len(sys.argv) > 1 else "/tmp/sg_demo")
+enable_compile_cache()
+out_dir = pathlib.Path(
+    sys.argv[1] if len(sys.argv) > 1
+    else pathlib.Path(__file__).resolve().parent.parent / "demo_out"
+)
 out_dir.mkdir(parents=True, exist_ok=True)
 
 cfg = sg.SpectrogramConfig(sample_rate=48_000.0, viewport_height=512)

@@ -1,8 +1,8 @@
-"""spectrogram-tpu: TPU-native live audio spectrogram framework.
+"""spectrogram-tpu: accelerator-batched live audio spectrogram framework.
 
-Capabilities of `spectrogram-rs` (Rust/GTK/FFTW/OpenGL), rebuilt TPU-first:
+Capabilities of `spectrogram-rs` (Rust/GTK/FFTW/OpenGL), rebuilt in JAX:
 push raw PCM frames in, get log-frequency colormapped spectrogram rows out,
-batched over thousands of concurrent streams (jax / XLA / Pallas / pjit).
+batched over thousands of concurrent streams (jax / XLA / shard_map).
 """
 
 from spectrogram_tpu.config import BENCH_CONFIG, DEFAULT_CONFIG, SpectrogramConfig

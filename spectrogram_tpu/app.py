@@ -2,7 +2,7 @@
 
 The host-side equivalent of the reference's app layer (src/main.rs): where
 the Rust builds a GTK window with device/palette dropdowns and a GL
-visualizer, the TPU framework's surface is a CLI + Python API — inputs are
+visualizer, this framework's surface is a CLI + Python API — inputs are
 selected from the same kind of registry, palettes from the same 19-scheme
 list, and output goes to PNG files (or a terminal live view) instead of a
 GLArea.
@@ -492,5 +492,13 @@ def main(argv=None) -> int:
     return args.fn(args)
 
 
+def cli() -> int:
+    """Console entry point: `main` with the persistent compile cache on."""
+    from spectrogram_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    return main()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cli())

@@ -1,6 +1,6 @@
 """Color schemes: the palette registry + dB/pan -> color mapping.
 
-TPU-first port of the reference `ColorScheme` GObject (src/colorscheme.rs):
+JAX port of the reference `ColorScheme` GObject (src/colorscheme.rs):
 
 * `color_for` — the scalar CPU-path law (colorscheme.rs:55-71), used by the
   golden model and tests.
@@ -12,7 +12,7 @@ TPU-first port of the reference `ColorScheme` GObject (src/colorscheme.rs):
 
 On device the whole registry becomes one stacked `[P, R, R, 4]` f32 array so a
 per-stream palette index selects a scheme with a gather, no re-upload —
-the TPU equivalent of swapping the palette texture (gpu_spectrogram.rs:232-239).
+the equivalent of swapping the palette texture (gpu_spectrogram.rs:232-239).
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ class ColorScheme:
     `ColorScheme::new_mono/new_stereo` (colorscheme.rs:24-39): either name a
     registered gradient, or pass any vectorized `gradient_fn`
     (t in [0,1] -> float rgb in [0,1]) with gradient_name="".  Custom
-    schemes ride the same fused device kernels as the built-ins — hand a
+    schemes ride the same device path as the built-ins — hand a
     scheme list to `SpectrogramPipeline(schemes=...)`.
     """
 
@@ -138,10 +138,8 @@ class FactoredScheme:
 
     This is the escape hatch past the gradient structure: any separable 2D
     response (e.g. hue from pan AND brightness from magnitude) expressed
-    exactly.  Schemes that happen to match the built-in mono/stereo shape
-    are auto-detected and still take the specialized kernel; everything else
-    runs the generic fused kernel (`colormap_rows_fused` machinery) — same
-    Pallas path, two 4-channel tent interpolations instead of one 3-channel.
+    exactly.  The pipeline samples every scheme through its factored
+    (U, V) tables (`ops.colormap.sample_lut_factored`).
     """
 
     name: str

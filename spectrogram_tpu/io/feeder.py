@@ -2,7 +2,7 @@
 
 The reference achieves <= 1 display frame of latency by doing exactly one
 texture upload + draw per vsync (README.md:10-11; gpu_spectrogram.rs's tick
-callback).  The TPU analog is JAX's async dispatch: a push can be ENQUEUED
+callback).  The analog here is JAX's async dispatch: a push can be ENQUEUED
 while the previous one still executes, overlapping H2D transfer of chunk
 N+1 with compute of chunk N — the double-buffered pipeline of SURVEY.md §7
 ("hop-tick dispatch cadence with async dispatch depth 2").
@@ -18,6 +18,7 @@ from __future__ import annotations
 import collections
 from typing import Callable, Iterator, Optional
 
+import jax
 import numpy as np
 
 from spectrogram_tpu.models.spectrogram import SpectrogramPipeline, StreamState
@@ -106,11 +107,9 @@ class DeviceFeeder:
         # planar=True: chunks arrive [S, 2, n] (RingBank.pop_matrix_planar),
         # skipping the device-side transpose at the ingestion edge.
         self.planar = bool(planar)
-        # readback="probe": force completion via a single-element host read
-        # and hand back the DEVICE array instead of a full host copy — for
-        # consumers that keep rows on-device (renderers, device-side sinks)
-        # or for dev harnesses whose D2H path is orders of magnitude slower
-        # than a production host's PCIe.
+        # readback="probe": wait for the push and hand back the DEVICE array
+        # instead of a full host copy — for consumers that keep rows
+        # on-device (renderers, device-side sinks).
         self.readback = readback
         # copy_chunks=False is safe ONLY when the caller rotates >= depth+1
         # host buffers — use ChunkPool.for_feeder (see its safety contract).
@@ -123,10 +122,9 @@ class DeviceFeeder:
     def _drain_one(self) -> np.ndarray:
         rgba = self._inflight.popleft()
         if self.readback == "probe":
-            np.asarray(rgba[(0,) * rgba.ndim])  # force completion only
-            host = rgba                          # stays on device
+            host = jax.block_until_ready(rgba)  # stays on device
         else:
-            host = np.asarray(rgba)  # forces completion (relay-safe)
+            host = np.asarray(rgba)  # waits for the push, copies to host
         if self.on_rows is not None:
             self.on_rows(host)
         return host

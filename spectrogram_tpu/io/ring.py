@@ -97,12 +97,6 @@ def _load_library() -> Optional[ctypes.CDLL]:
         lib.bank_pop_matrix_planar_mt.argtypes = [
             ctypes.c_void_p, _f32p, _u64, _u64p, _u64
         ]
-        lib.bank_pop_matrix_mt_perm.argtypes = [
-            ctypes.c_void_p, _f32p, _u64, _u64p, _u64, _u64p
-        ]
-        lib.bank_pop_matrix_planar_mt_perm.argtypes = [
-            ctypes.c_void_p, _f32p, _u64, _u64p, _u64, _u64p
-        ]
         lib.bank_min_size.restype = _u64
         lib.bank_min_size.argtypes = [ctypes.c_void_p]
         lib.bank_size.restype = _u64
@@ -134,26 +128,6 @@ def _check_out(out, shape) -> np.ndarray:
             f"{out.dtype} {out.shape} contiguous={out.flags['C_CONTIGUOUS']}"
         )
     return out
-
-
-def _check_dest(dest, n_streams: int) -> Optional[np.ndarray]:
-    """Validate a destination-row permutation for the permuted drains: a
-    uint64 [S] permutation of range(S).  Stream s's frames land in output
-    row dest[s] — the host-sorted chunk order for palette-sorted pipelines
-    (`SpectrogramPipeline.input_dest`).  A non-permutation would race two
-    streams onto one output row in the multithreaded native copy, so this
-    is validated eagerly (once per set_palette, not per tick — callers
-    cache the array)."""
-    if dest is None:
-        return None
-    dest = np.ascontiguousarray(dest, dtype=np.uint64)
-    if dest.shape != (n_streams,):
-        raise ValueError(f"dest must be [{n_streams}]; got {dest.shape}")
-    seen = np.zeros(n_streams, bool)
-    seen[dest] = True  # IndexError on out-of-range is the guard for >= S
-    if not seen.all():
-        raise ValueError("dest must be a permutation of range(n_streams)")
-    return dest
 
 
 def _as_frames(frames: np.ndarray) -> np.ndarray:
@@ -308,81 +282,51 @@ class RingBank:
             for s in range(self.n_streams):
                 self._rings[s].push(frames[s])
 
-    def pop_matrix(self, n: int, out: Optional[np.ndarray] = None,
-                   dest: Optional[np.ndarray] = None):
+    def pop_matrix(self, n: int, out: Optional[np.ndarray] = None):
         """Pop n frames per stream into [S, n, 2] (zero-padded on underrun).
 
         Returns (out, counts) with counts[s] = frames actually popped for
         stream s.  `out` may be preallocated (pinned) to avoid per-tick
-        allocation.  `dest` (optional [S] permutation): stream s's frames
-        land in output row dest[s] — the host-sorted drain that lets
-        palette-sorted pipelines (`presorted_input=True`) skip the
-        device-side chunk gather; counts stay indexed by source stream.
+        allocation.
         """
         out = _check_out(out, (self.n_streams, n, 2))
         counts = np.empty((self.n_streams,), np.uint64)
-        dest = _check_dest(dest, self.n_streams)
         if self._handle:
-            if dest is None:
-                self._lib.bank_pop_matrix_mt(
-                    self._handle,
-                    out.ctypes.data_as(_f32p),
-                    _u64(n),
-                    counts.ctypes.data_as(_u64p),
-                    _u64(self.n_threads),
-                )
-            else:
-                self._lib.bank_pop_matrix_mt_perm(
-                    self._handle,
-                    out.ctypes.data_as(_f32p),
-                    _u64(n),
-                    counts.ctypes.data_as(_u64p),
-                    _u64(self.n_threads),
-                    dest.ctypes.data_as(_u64p),
-                )
+            self._lib.bank_pop_matrix_mt(
+                self._handle,
+                out.ctypes.data_as(_f32p),
+                _u64(n),
+                counts.ctypes.data_as(_u64p),
+                _u64(self.n_threads),
+            )
         else:
             for s in range(self.n_streams):
                 got = self._rings[s].pop(n)
                 counts[s] = len(got)
-                d = int(dest[s]) if dest is not None else s
-                out[d, : len(got)] = got
-                out[d, len(got) :] = 0.0
+                out[s, : len(got)] = got
+                out[s, len(got) :] = 0.0
         return out, counts
 
-    def pop_matrix_planar(self, n: int, out: Optional[np.ndarray] = None,
-                          dest: Optional[np.ndarray] = None):
+    def pop_matrix_planar(self, n: int, out: Optional[np.ndarray] = None):
         """Pop n frames per stream into PLANAR [S, 2, n] — the channels are
         deinterleaved during the host copy (free), so the device never pays
-        the [S, n, 2] -> [S, 2, n] transpose before a planar push.  `dest`:
-        see pop_matrix."""
+        the [S, n, 2] -> [S, 2, n] transpose before a planar push."""
         out = _check_out(out, (self.n_streams, 2, n))
         counts = np.empty((self.n_streams,), np.uint64)
-        dest = _check_dest(dest, self.n_streams)
         if self._handle:
-            if dest is None:
-                self._lib.bank_pop_matrix_planar_mt(
-                    self._handle,
-                    out.ctypes.data_as(_f32p),
-                    _u64(n),
-                    counts.ctypes.data_as(_u64p),
-                    _u64(self.n_threads),
-                )
-            else:
-                self._lib.bank_pop_matrix_planar_mt_perm(
-                    self._handle,
-                    out.ctypes.data_as(_f32p),
-                    _u64(n),
-                    counts.ctypes.data_as(_u64p),
-                    _u64(self.n_threads),
-                    dest.ctypes.data_as(_u64p),
-                )
+            self._lib.bank_pop_matrix_planar_mt(
+                self._handle,
+                out.ctypes.data_as(_f32p),
+                _u64(n),
+                counts.ctypes.data_as(_u64p),
+                _u64(self.n_threads),
+            )
         else:
             for s in range(self.n_streams):
                 got = self._rings[s].pop(n)
                 counts[s] = len(got)
-                d = int(dest[s]) if dest is not None else s
-                out[d, :, : len(got)] = got.T
-                out[d, :, len(got) :] = 0.0
+                out[s, :, : len(got)] = got.T
+                out[s, :, len(got) :] = 0.0
         return out, counts
 
     def min_size(self) -> int:
@@ -414,8 +358,8 @@ class RingBank16:
     """S uniform SPSC rings of int16 PCM; pops convert to f32 in one pass.
 
     PCM's native wire format is int16 — storing it that way halves ring
-    memory and hop-tick read traffic (the host memory bus, not the TPU, is
-    the 10k-stream bottleneck; see DESIGN.md).  Native-only (no fallback):
+    memory and hop-tick read traffic (the host memory bus was the measured
+    10k-stream ingest bottleneck; see DESIGN.md).  Native-only (no fallback):
     this class exists purely for ingest bandwidth.
     """
 
@@ -463,15 +407,6 @@ class RingBank16:
         ]
         lib.bank16_pop_matrix_i16_planar.argtypes = [
             ctypes.c_void_p, _i16p, _u64, _u64p, _u64
-        ]
-        lib.bank16_pop_matrix_f32_perm.argtypes = [
-            ctypes.c_void_p, _f32p, _u64, _u64p, _u64, _u64p
-        ]
-        lib.bank16_pop_matrix_f32_planar_perm.argtypes = [
-            ctypes.c_void_p, _f32p, _u64, _u64p, _u64, _u64p
-        ]
-        lib.bank16_pop_matrix_i16_planar_perm.argtypes = [
-            ctypes.c_void_p, _i16p, _u64, _u64p, _u64, _u64p
         ]
         lib.bank16_min_size.restype = _u64
         lib.bank16_min_size.argtypes = [ctypes.c_void_p]
@@ -550,57 +485,33 @@ class RingBank16:
         )
         return counts
 
-    def pop_matrix_f32(self, n: int, out: Optional[np.ndarray] = None,
-                       dest: Optional[np.ndarray] = None):
+    def pop_matrix_f32(self, n: int, out: Optional[np.ndarray] = None):
         """Pop n frames per stream into f32 [S, n, 2] (x/32768 conversion
-        fused into the copy), zero-padded on underrun.  `dest` (optional
-        [S] permutation): stream s lands in output row dest[s] — the
-        host-sorted drain (`SpectrogramPipeline.input_dest`); counts stay
-        indexed by source stream."""
+        fused into the copy), zero-padded on underrun."""
         out = _check_out(out, (self.n_streams, n, 2))
         counts = np.empty((self.n_streams,), np.uint64)
-        dest = _check_dest(dest, self.n_streams)
-        if dest is None:
-            self._lib.bank16_pop_matrix_f32(
-                self._handle, out.ctypes.data_as(_f32p), _u64(n),
-                counts.ctypes.data_as(_u64p), _u64(self.n_threads),
-            )
-        else:
-            self._lib.bank16_pop_matrix_f32_perm(
-                self._handle, out.ctypes.data_as(_f32p), _u64(n),
-                counts.ctypes.data_as(_u64p), _u64(self.n_threads),
-                dest.ctypes.data_as(_u64p),
-            )
+        self._lib.bank16_pop_matrix_f32(
+            self._handle, out.ctypes.data_as(_f32p), _u64(n),
+            counts.ctypes.data_as(_u64p), _u64(self.n_threads),
+        )
         return out, counts
 
-    def pop_matrix_f32_planar(self, n: int, out: Optional[np.ndarray] = None,
-                              dest: Optional[np.ndarray] = None):
-        """Planar [S, 2, n] f32 drain with fused i16->f32 conversion.
-        `dest`: see pop_matrix_f32."""
+    def pop_matrix_f32_planar(self, n: int, out: Optional[np.ndarray] = None):
+        """Planar [S, 2, n] f32 drain with fused i16->f32 conversion."""
         out = _check_out(out, (self.n_streams, 2, n))
         counts = np.empty((self.n_streams,), np.uint64)
-        dest = _check_dest(dest, self.n_streams)
-        if dest is None:
-            self._lib.bank16_pop_matrix_f32_planar(
-                self._handle, out.ctypes.data_as(_f32p), _u64(n),
-                counts.ctypes.data_as(_u64p), _u64(self.n_threads),
-            )
-        else:
-            self._lib.bank16_pop_matrix_f32_planar_perm(
-                self._handle, out.ctypes.data_as(_f32p), _u64(n),
-                counts.ctypes.data_as(_u64p), _u64(self.n_threads),
-                dest.ctypes.data_as(_u64p),
-            )
+        self._lib.bank16_pop_matrix_f32_planar(
+            self._handle, out.ctypes.data_as(_f32p), _u64(n),
+            counts.ctypes.data_as(_u64p), _u64(self.n_threads),
+        )
         return out, counts
 
-    def pop_matrix_i16_planar(self, n: int, out: Optional[np.ndarray] = None,
-                              dest: Optional[np.ndarray] = None):
+    def pop_matrix_i16_planar(self, n: int, out: Optional[np.ndarray] = None):
         """Planar [S, 2, n] RAW int16 drain (no conversion): the wire-dtype
         path — push the int16 block to the device as-is (HALF the
         host->device bytes of the f32 drain) and let the jitted push scale
         by 1/32768 on-device (`SpectrogramPipeline.push*` accept int16
-        chunks; the multiply fuses into the framing pass).  `dest`: see
-        pop_matrix_f32."""
+        chunks; the multiply fuses into the framing pass)."""
         if out is None:
             out = np.empty((self.n_streams, 2, n), np.int16)
         elif (out.shape != (self.n_streams, 2, n)
@@ -609,18 +520,10 @@ class RingBank16:
                 f"out must be C-contiguous int16 {(self.n_streams, 2, n)}"
             )
         counts = np.empty((self.n_streams,), np.uint64)
-        dest = _check_dest(dest, self.n_streams)
-        if dest is None:
-            self._lib.bank16_pop_matrix_i16_planar(
-                self._handle, out.ctypes.data_as(_i16p), _u64(n),
-                counts.ctypes.data_as(_u64p), _u64(self.n_threads),
-            )
-        else:
-            self._lib.bank16_pop_matrix_i16_planar_perm(
-                self._handle, out.ctypes.data_as(_i16p), _u64(n),
-                counts.ctypes.data_as(_u64p), _u64(self.n_threads),
-                dest.ctypes.data_as(_u64p),
-            )
+        self._lib.bank16_pop_matrix_i16_planar(
+            self._handle, out.ctypes.data_as(_i16p), _u64(n),
+            counts.ctypes.data_as(_u64p), _u64(self.n_threads),
+        )
         return out, counts
 
     def min_size(self) -> int:

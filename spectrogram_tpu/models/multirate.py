@@ -2,7 +2,8 @@
 
 SURVEY.md §7 "Hard parts / Ragged time": per-stream sample rates and hops
 make row production rates differ across a batch, but XLA wants static shapes
-and lockstep batches.  The resolution is the standard TPU serving pattern:
+and lockstep batches.  The resolution is the standard accelerator serving
+pattern:
 **group streams by geometry** — every stream with the same (sample_rate,
 window, hop, height) config shares one `SpectrogramPipeline` and one lockstep
 state batch; groups advance independently, each at its own hop cadence.
@@ -38,9 +39,7 @@ class StreamGroup:
     feeder: object = None        # io.feeder.DeviceFeeder (ingest mode)
     pinned: object = None        # io.feeder.ChunkPool (rotating drain buffers)
     next_due: float = 0.0        # next hop-tick deadline (group clock)
-    steps: dict = dataclasses.field(default_factory=dict)  # mesh-mode
-    # shard_map push steps, keyed by the state's palette-table class (the
-    # table specs differ between per-stream / uniform / sorted states)
+    step: object = None          # mesh mode: the group's shard_map push step
 
     @property
     def n_streams(self) -> int:
@@ -76,10 +75,10 @@ class StreamGroupManager:
         self.pipeline_kwargs = dict(pipeline_kwargs)
         # mesh (direct mode): every geometry group's lockstep state lives
         # stream-sharded on the jax.sharding.Mesh; push_group routes
-        # through parallel.mesh.shard_map_step (psum row metrics over
-        # ICI), set_palette re-places mutated states per shard slice.
+        # through parallel.mesh.shard_map_step (psum row metrics),
+        # set_palette re-places mutated states on the mesh.
         # Ingest ticking stays single-process per host BY DESIGN — in the
-        # multi-host deployment PCM never crosses DCN (one manager per
+        # multi-host deployment PCM never crosses hosts (one manager per
         # process over its host-local shard, parallel/distributed.py), so
         # mesh+ingest in one manager is a topology error, not a feature.
         if mesh is not None:
@@ -87,7 +86,7 @@ class StreamGroupManager:
                 raise ValueError(
                     "mesh + ingest in one manager is unsupported: host "
                     "ingest shards are per-process (PCM never crosses "
-                    "DCN) — run one ingest manager per process, or use "
+                    "hosts) — run one ingest manager per process, or use "
                     "mesh mode with push_group"
                 )
             n_dev = int(np.prod(list(mesh.shape.values())))
@@ -156,20 +155,10 @@ class StreamGroupManager:
             slot = group.stream_ids.index(-1)
             # Zero the slot's device state: the new tenant must not inherit
             # the dead stream's carry samples or retained viewport rows
-            # (cross-stream data leakage in a multi-tenant service).  In
-            # carry-sort mode the carry is at rest in SORTED stream order —
-            # zero the slot's sorted row, not row `slot`.
+            # (cross-stream data leakage in a multi-tenant service).
             st = self._state(group)
-            crow = slot
-            pi = group.pipeline._state_perm(st)
-            if pi is not None and group.pipeline.carry_sort_mode:
-                inv = group.pipeline._global_perm(
-                    pi[1], self.group_capacity,
-                    group.pipeline._tables_perm_global(st.tables),
-                )
-                crow = int(np.asarray(inv)[slot])
             self._set_state(group, st._replace(
-                carry=st.carry.at[crow].set(0.0),
+                carry=st.carry.at[slot].set(0.0),
                 ring=st.ring.at[slot].set(0) if st.ring.shape[1] else st.ring,
             ))
             if group.bank is not None:
@@ -187,8 +176,6 @@ class StreamGroupManager:
         group.stream_ids[slot] = stream_id
         self._locations[stream_id] = (cfg, slot)
         st = self._state(group)
-        # through pipeline.set_palette (not a raw _replace): the state's
-        # pre-picked kernel tables must track palette_id
         self._set_state(
             group,
             self._place(group, group.pipeline.set_palette(
@@ -208,33 +195,13 @@ class StreamGroupManager:
         group.state = st
 
     def _place(self, group: StreamGroup, st: StreamState) -> StreamState:
-        """Mesh mode: re-place a host-mutated state onto the mesh (palette
-        edits rebuild tables on the default device; shard_state also
-        re-sorts palette-sorted states PER SHARD SLICE).  Called at
-        mutation points only — pushed states are already sharded."""
+        """Mesh mode: re-place a host-mutated state onto the mesh.  Called
+        at mutation points only — pushed states are already sharded."""
         if self.mesh is None:
             return st
         from spectrogram_tpu.parallel import mesh as pmesh
 
-        return pmesh.shard_state(st, self.mesh, group.pipeline)
-
-    def _mesh_step(self, group: StreamGroup, st: StreamState):
-        """shard_map push step for the state's current palette-table class
-        (per-stream / uniform / sorted states need different table specs);
-        cached per class so layout flips don't retrace unchanged ones."""
-        from spectrogram_tpu.parallel import mesh as pmesh
-
-        key = (
-            len(st.tables),
-            tuple(t.ndim for t in st.tables),
-            bool(st.tables) and st.tables[0].shape[0] == 1,
-        )
-        step = group.steps.get(key)
-        if step is None:
-            step = group.steps[key] = pmesh.shard_map_step(
-                group.pipeline, self.mesh, state=st
-            )
-        return step
+        return pmesh.shard_state(st, self.mesh)
 
     def remove_stream(self, stream_id: int) -> None:
         """Detach: the slot keeps computing silence until reused (no
@@ -264,8 +231,9 @@ class StreamGroupManager:
             from spectrogram_tpu.parallel import mesh as pmesh
             import jax.numpy as jnp
 
-            step = self._mesh_step(group, st)
-            st, rgba, _global_rows = step(
+            if group.step is None:
+                group.step = pmesh.shard_map_step(group.pipeline, self.mesh)
+            st, rgba, _global_rows = group.step(
                 st,
                 jax.device_put(
                     jnp.asarray(chunk), pmesh.chunk_sharding(self.mesh)
@@ -338,7 +306,7 @@ class StreamGroupManager:
         group pins real HBM).  Returns the number of groups collected.
 
         Known limit: the pipeline's jitted entry points keep the pipeline
-        object (its constant device tables, ~tens of MB per geometry) and
+        object (its constant resample matrix, ~10-20 MB per geometry) and
         compiled executables alive in JAX's jit cache — JAX has no
         per-instance eviction; call `jax.clear_caches()` if geometry churn
         is unbounded (it drops ALL compiled functions, so the next push per

@@ -1,6 +1,6 @@
 """Oscilloscope: raw-waveform visualizer, batched over streams.
 
-TPU redesign of the reference `Oscilloscope` widget
+JAX redesign of the reference `Oscilloscope` widget
 (src/widgets/oscilloscope.rs): a 16384-sample F32F32 ring texture written
 destructively from the stream (:199-213) and drawn as two GL line strips
 whose vertex shader fetches sample i at (gl_VertexID + ring_index) (:122-136).

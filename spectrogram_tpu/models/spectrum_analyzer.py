@@ -1,6 +1,6 @@
 """Spectrum analyzer: per-band level meters with peak decay, batched.
 
-TPU redesign of the reference `SpectrumAnalyzer` widget
+JAX redesign of the reference `SpectrumAnalyzer` widget
 (src/widgets/spectrum_analyzer.rs): 128 log-spaced bands from 32 Hz to
 max(fs/2, 22050) (:53-59), each bar showing
 `10*log10(|m| + 1e-7)` normalized to [-70, -10] (:61-66 — note the
@@ -72,7 +72,7 @@ class SpectrumAnalyzer:
         3] u8 bar image — the live-view analog of the reference's LevelBar
         column (spectrum_analyzer.rs:48-69, 88-99): one vertical bar per band
         rising from the bottom, colored by the scheme's foreground (GTK
-        LevelBar chrome has no TPU analog; the bar geometry is the parity
+        LevelBar chrome has no analog here; the bar geometry is the parity
         surface).  Vectorized (one mask over the [height, bands] grid)."""
         import numpy as np
 

@@ -1,6 +1,6 @@
 // Host-side lock-free SPSC ring buffers for PCM ingest.
 //
-// TPU-native replacement for the reference's sample transport layer: the
+// Replacement for the reference's sample transport layer: the
 // `ringbuf` HeapRb SPSC queue created at
 // reference src/devices/audio_input_list_model.rs:30 and consumed at
 // src/fourier/audio_transform.rs:38-39.  Differences by design:
@@ -244,38 +244,25 @@ void push_range(RingBank *b, uint64_t lo, uint64_t hi, float *frames,
   }
 }
 
-// dest (nullable): destination-row permutation — stream s's frames land in
-// output row dest[s] instead of row s.  The host-sorted drain for palette-
-// sorted pipelines (`SpectrogramPipeline.input_dest`): the bank already
-// scatters per stream, so permuting the target row is free and deletes the
-// device-side chunk gather.  Race-free iff dest is a permutation (each
-// output row written by exactly one stream).  counts stay indexed by the
-// SOURCE stream (drop accounting is per external stream).
-void pop_range_d(RingBank *b, uint64_t lo, uint64_t hi, float *out, uint64_t n,
-                 uint64_t *counts, const uint64_t *dest) {
+void pop_range(RingBank *b, uint64_t lo, uint64_t hi, float *out, uint64_t n,
+               uint64_t *counts) {
   for (uint64_t s = lo; s < hi; ++s) {
-    const uint64_t d = dest ? dest[s] : s;
-    uint64_t got = pop_impl(&b->rings[s], out + d * n * 2, n);
+    uint64_t got = pop_impl(&b->rings[s], out + s * n * 2, n);
     if (got < n) {
-      std::memset(out + (d * n + got) * 2, 0, (n - got) * 2 * sizeof(float));
+      std::memset(out + (s * n + got) * 2, 0, (n - got) * 2 * sizeof(float));
     }
     if (counts) counts[s] = got;
   }
 }
 
-void pop_range(RingBank *b, uint64_t lo, uint64_t hi, float *out, uint64_t n,
-               uint64_t *counts) {
-  pop_range_d(b, lo, hi, out, n, counts, nullptr);
-}
-
 // Planar variant: out[S, 2, n] with the channels deinterleaved during the
 // copy — free on the host, and saves the device a [S, n, 2] -> [S, 2, n]
-// transpose pass before every push (the TPU pipeline is channels-planar).
-void pop_range_planar_d(RingBank *b, uint64_t lo, uint64_t hi, float *out,
-                        uint64_t n, uint64_t *counts, const uint64_t *dest) {
+// transpose pass before every push (the device pipeline is channels-planar).
+void pop_range_planar(RingBank *b, uint64_t lo, uint64_t hi, float *out,
+                      uint64_t n, uint64_t *counts) {
   for (uint64_t s = lo; s < hi; ++s) {
     Ring *r = &b->rings[s];
-    float *left = out + (dest ? dest[s] : s) * 2 * n;
+    float *left = out + s * 2 * n;
     float *right = left + n;
     const uint64_t tail = r->tail.load(std::memory_order_relaxed);
     const uint64_t head = r->head.load(std::memory_order_acquire);
@@ -293,11 +280,6 @@ void pop_range_planar_d(RingBank *b, uint64_t lo, uint64_t hi, float *out,
     r->tail.store(tail + taken, std::memory_order_release);
     if (counts) counts[s] = taken;
   }
-}
-
-void pop_range_planar(RingBank *b, uint64_t lo, uint64_t hi, float *out,
-                      uint64_t n, uint64_t *counts) {
-  pop_range_planar_d(b, lo, hi, out, n, counts, nullptr);
 }
 
 }  // namespace
@@ -332,27 +314,6 @@ void bank_pop_matrix_mt(RingBank *b, float *out, uint64_t n, uint64_t *counts,
 void bank_pop_matrix_planar_mt(RingBank *b, float *out, uint64_t n,
                                uint64_t *counts, uint64_t n_threads) {
   parallel_streams(b, n_threads, pop_range_planar, out, n, counts);
-}
-
-// Destination-permuted drains (host-sorted chunk order; see pop_range_d).
-void bank_pop_matrix_mt_perm(RingBank *b, float *out, uint64_t n,
-                             uint64_t *counts, uint64_t n_threads,
-                             const uint64_t *dest) {
-  auto fn = [dest](RingBank *bb, uint64_t lo, uint64_t hi, float *o,
-                   uint64_t nn, uint64_t *c) {
-    pop_range_d(bb, lo, hi, o, nn, c, dest);
-  };
-  parallel_streams(b, n_threads, fn, out, n, counts);
-}
-
-void bank_pop_matrix_planar_mt_perm(RingBank *b, float *out, uint64_t n,
-                                    uint64_t *counts, uint64_t n_threads,
-                                    const uint64_t *dest) {
-  auto fn = [dest](RingBank *bb, uint64_t lo, uint64_t hi, float *o,
-                   uint64_t nn, uint64_t *c) {
-    pop_range_planar_d(bb, lo, hi, o, nn, c, dest);
-  };
-  parallel_streams(b, n_threads, fn, out, n, counts);
 }
 
 // Smallest buffered frame count across all streams (lockstep readiness).
@@ -482,29 +443,22 @@ void push16_range_planar(RingBank16 *b, uint64_t lo, uint64_t hi,
   }
 }
 
-// dest semantics as pop_range_d: stream s -> output row dest[s] (nullable).
-void pop16_range_d(RingBank16 *b, uint64_t lo, uint64_t hi, float *out,
-                   uint64_t n, uint64_t *counts, const uint64_t *dest) {
-  for (uint64_t s = lo; s < hi; ++s) {
-    pop16_to_f32(&b->rings[s], out + (dest ? dest[s] : s) * n * 2, n,
-                 counts ? counts + s : nullptr);
-  }
-}
-
 void pop16_range(RingBank16 *b, uint64_t lo, uint64_t hi, float *out,
                  uint64_t n, uint64_t *counts) {
-  pop16_range_d(b, lo, hi, out, n, counts, nullptr);
+  for (uint64_t s = lo; s < hi; ++s) {
+    pop16_to_f32(&b->rings[s], out + s * n * 2, n,
+                 counts ? counts + s : nullptr);
+  }
 }
 
 // Raw int16 planar drain: no f32 conversion — the wire-dtype path where
 // the i16 -> f32 scale runs ON DEVICE inside the jitted push (halves the
 // host->device transfer bytes; the framing pass absorbs the multiply).
-void pop16_range_planar_i16_d(RingBank16 *b, uint64_t lo, uint64_t hi,
-                              int16_t *out, uint64_t n, uint64_t *counts,
-                              const uint64_t *dest) {
+void pop16_range_planar_i16(RingBank16 *b, uint64_t lo, uint64_t hi,
+                            int16_t *out, uint64_t n, uint64_t *counts) {
   for (uint64_t s = lo; s < hi; ++s) {
     Ring16 *r = &b->rings[s];
-    int16_t *left = out + (dest ? dest[s] : s) * 2 * n;
+    int16_t *left = out + s * 2 * n;
     int16_t *right = left + n;
     const uint64_t tail = r->tail.load(std::memory_order_relaxed);
     const uint64_t head = r->head.load(std::memory_order_acquire);
@@ -524,17 +478,12 @@ void pop16_range_planar_i16_d(RingBank16 *b, uint64_t lo, uint64_t hi,
   }
 }
 
-void pop16_range_planar_i16(RingBank16 *b, uint64_t lo, uint64_t hi,
-                            int16_t *out, uint64_t n, uint64_t *counts) {
-  pop16_range_planar_i16_d(b, lo, hi, out, n, counts, nullptr);
-}
-
-void pop16_range_planar_d(RingBank16 *b, uint64_t lo, uint64_t hi, float *out,
-                          uint64_t n, uint64_t *counts, const uint64_t *dest) {
+void pop16_range_planar(RingBank16 *b, uint64_t lo, uint64_t hi, float *out,
+                        uint64_t n, uint64_t *counts) {
   constexpr float kScale = 1.0f / 32768.0f;
   for (uint64_t s = lo; s < hi; ++s) {
     Ring16 *r = &b->rings[s];
-    float *left = out + (dest ? dest[s] : s) * 2 * n;
+    float *left = out + s * 2 * n;
     float *right = left + n;
     const uint64_t tail = r->tail.load(std::memory_order_relaxed);
     const uint64_t head = r->head.load(std::memory_order_acquire);
@@ -552,11 +501,6 @@ void pop16_range_planar_d(RingBank16 *b, uint64_t lo, uint64_t hi, float *out,
     r->tail.store(tail + taken, std::memory_order_release);
     if (counts) counts[s] = taken;
   }
-}
-
-void pop16_range_planar(RingBank16 *b, uint64_t lo, uint64_t hi, float *out,
-                        uint64_t n, uint64_t *counts) {
-  pop16_range_planar_d(b, lo, hi, out, n, counts, nullptr);
 }
 
 }  // namespace
@@ -642,38 +586,6 @@ void bank16_pop_matrix_f32_planar(RingBank16 *b, float *out, uint64_t n,
 void bank16_pop_matrix_i16_planar(RingBank16 *b, int16_t *out, uint64_t n,
                                   uint64_t *counts, uint64_t n_threads) {
   parallel_streams(b, n_threads, pop16_range_planar_i16, out, n, counts);
-}
-
-// Destination-permuted drains (host-sorted chunk order; see pop_range_d).
-void bank16_pop_matrix_f32_perm(RingBank16 *b, float *out, uint64_t n,
-                                uint64_t *counts, uint64_t n_threads,
-                                const uint64_t *dest) {
-  auto fn = [dest](RingBank16 *bb, uint64_t lo, uint64_t hi, float *o,
-                   uint64_t nn, uint64_t *c) {
-    pop16_range_d(bb, lo, hi, o, nn, c, dest);
-  };
-  parallel_streams(b, n_threads, fn, out, n, counts);
-}
-
-void bank16_pop_matrix_f32_planar_perm(RingBank16 *b, float *out, uint64_t n,
-                                       uint64_t *counts, uint64_t n_threads,
-                                       const uint64_t *dest) {
-  auto fn = [dest](RingBank16 *bb, uint64_t lo, uint64_t hi, float *o,
-                   uint64_t nn, uint64_t *c) {
-    pop16_range_planar_d(bb, lo, hi, o, nn, c, dest);
-  };
-  parallel_streams(b, n_threads, fn, out, n, counts);
-}
-
-void bank16_pop_matrix_i16_planar_perm(RingBank16 *b, int16_t *out,
-                                       uint64_t n, uint64_t *counts,
-                                       uint64_t n_threads,
-                                       const uint64_t *dest) {
-  auto fn = [dest](RingBank16 *bb, uint64_t lo, uint64_t hi, int16_t *o,
-                   uint64_t nn, uint64_t *c) {
-    pop16_range_planar_i16_d(bb, lo, hi, o, nn, c, dest);
-  };
-  parallel_streams(b, n_threads, fn, out, n, counts);
 }
 
 // Consumer-side discard of everything buffered for one stream (slot reuse:

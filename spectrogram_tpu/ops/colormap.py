@@ -1,6 +1,6 @@
 """Log-frequency warp + dB + pan + palette LUT: the colormap stage.
 
-This is the TPU-native equivalent of the reference's fragment shader
+This is the JAX equivalent of the reference's fragment shader
 (src/widgets/gpu_spectrogram.rs:150-190), which per output pixel:
 
   1. warps the pixel row to a frequency: exp(lerp(ln 32, ln 22030, uv.y))
@@ -12,9 +12,7 @@ This is the TPU-native equivalent of the reference's fragment shader
 
 Design: step 1+2 collapse into a precomputed `[H, B]` sparse-as-dense
 resample matrix (2 nonzeros per row), so the per-row hot path is ONE matmul
-that the MXU eats, followed by cheap VPU elementwise math and a small LUT
-gather.  The same matrix, LUT, and laws are reused by the fused Pallas kernel
-(ops/pallas/colormap_kernel.py), which is parity-tested against this module.
+followed by elementwise math and a small LUT lookup.
 
 Output pixel index 0 = lowest frequency (GL uv.y = 0, bottom of screen).
 """
@@ -82,33 +80,12 @@ def resample_matrix(
     return m
 
 
-def resample_matrix_full(cfg: SpectrogramConfig, height: int | None = None) -> np.ndarray:
-    """[H, num_bins+1] variant over the full half-spectrum INCLUDING the DC
-    column (index k = padded-FFT bin k; DC never gets weight since
-    min_frequency > bin_hz for every supported geometry).  Lets the fused
-    STFT kernel hand its [N, N/2] output straight to the colormap kernel
-    with no bin-slicing pass in between."""
-    h = height or cfg.viewport_height
-    b = cfg.num_bins + 1
-    freqs = np.asarray(cfg.log_frequency_fracs(h, centers=True)) * cfg.max_frequency
-    pos = freqs / cfg.bin_hz  # index k = bin k exactly
-    base = np.floor(pos)
-    w = pos - base
-    j0 = np.clip(base, 0, b - 1).astype(np.int64)
-    j1 = np.clip(base + 1, 0, b - 1).astype(np.int64)
-    m = np.zeros((h, b), dtype=np.float32)
-    rows = np.arange(h)
-    m[rows, j0] += (1.0 - w).astype(np.float32)
-    m[rows, j1] += w.astype(np.float32)
-    return m
-
-
 def resample_rows(rows: jax.Array, matrix: jax.Array) -> jax.Array:
     """[..., B, 2] magnitude rows -> [..., H, 2] log-frequency pixels.
 
-    HIGHEST precision keeps the MXU in true-f32 mode: the TPU default
-    (bf16 inputs) costs ~3 decimal digits, well outside the parity
-    tolerance vs the reference's f32 pipeline.
+    HIGHEST precision keeps the contraction in true f32: the GPU default
+    for f32 matmuls (TF32 inputs) costs ~3 decimal digits, well outside the
+    parity tolerance vs the reference's f32 pipeline.
     """
     return jnp.einsum(
         "hb,...bc->...hc",
@@ -171,8 +148,7 @@ def tent_weights(coord: jax.Array, resolution: int) -> jax.Array:
     Row-wise this is the clamped-bilinear weight vector of the GL sampler
     (texel space x = clamp(clamp(c,0,1)*R - 0.5, 0, R-1); two adjacent
     nonzeros summing to 1), expressed densely so palette lookup becomes a
-    matmul instead of a gather — gathers scalarize on TPU, matmuls hit the
-    MXU.
+    small contraction instead of a per-pixel 2-D gather.
     """
     x = jnp.clip(jnp.clip(coord, 0.0, 1.0) * resolution - 0.5, 0.0, resolution - 1.0)
     t = jnp.arange(resolution, dtype=x.dtype)
@@ -187,22 +163,20 @@ def sample_lut_factored(
     Exactly equals `sample_lut_bilinear(LUT, pan, mag)` when
     LUT[i,j,c] = U[i,c] * V[j,c], because bilinear interpolation is
     separable.  u_table/v_table: [R, 4] (or with leading batch dims matching
-    pan/mag's leading axes for per-stream palettes).
+    pan/mag's leading axes for per-stream palettes).  The contractions pin
+    HIGHEST so the equality also holds where f32 matmuls default to TF32.
     """
     r = u_table.shape[-2]
     wu = tent_weights(mag, r)
     wv = tent_weights(pan, r)
+    kw = dict(preferred_element_type=jnp.float32, precision=jax.lax.Precision.HIGHEST)
     if u_table.ndim == 2:
-        cu = jnp.einsum("...t,tc->...c", wu, u_table, preferred_element_type=jnp.float32)
-        cv = jnp.einsum("...t,tc->...c", wv, v_table, preferred_element_type=jnp.float32)
+        cu = jnp.einsum("...t,tc->...c", wu, u_table, **kw)
+        cv = jnp.einsum("...t,tc->...c", wv, v_table, **kw)
     else:
         # leading stream axis: per-stream tables [S, R, 4], coords [S, ..., R]
-        cu = jnp.einsum(
-            "s...t,stc->s...c", wu, u_table, preferred_element_type=jnp.float32
-        )
-        cv = jnp.einsum(
-            "s...t,stc->s...c", wv, v_table, preferred_element_type=jnp.float32
-        )
+        cu = jnp.einsum("s...t,stc->s...c", wu, u_table, **kw)
+        cv = jnp.einsum("s...t,stc->s...c", wv, v_table, **kw)
     return cu * cv
 
 
@@ -221,8 +195,7 @@ def colormap_rows(
 ) -> jax.Array:
     """Full colormap stage: [..., B, 2] magnitude rows -> [..., H, 4] RGBA f32.
 
-    The reference jnp implementation of the fused colormap kernel; everything
-    here fuses under jit into (matmul -> elementwise -> gather).
+    Everything here fuses under jit into (matmul -> elementwise -> gather).
     """
     return colormap_resampled(resample_rows(rows, matrix), lut, cfg)
 
@@ -242,3 +215,9 @@ def composite_over_background(rgba: jax.Array, background_rgb: jax.Array) -> jax
 
 def rgba_f32_to_u8(rgba: jax.Array) -> jax.Array:
     return jnp.clip(jnp.round(rgba * 255.0), 0, 255).astype(jnp.uint8)
+
+
+def unpack_rgba(packed) -> np.ndarray:
+    """Host-side: [..., H] int32 RGBA8888 -> [..., H, 4] u8 (zero-copy view)."""
+    arr = np.asarray(packed)
+    return arr.view(np.uint8).reshape(*arr.shape, 4)

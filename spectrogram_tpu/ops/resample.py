@@ -5,7 +5,7 @@ The reference's CPU path answers "average magnitude over frequency band
 (src/fourier/interpolated_frequency_sample.rs:60-75, cubic :89-105).  All
 sample positions depend only on (sample_rate, bins, band edges) — static per
 config — so the whole query collapses into one [bands, bins] matrix and the
-device-side cost is a single MXU matmul, shared by:
+device-side cost is a single matmul, shared by:
 
 * the spectrum-analyzer bar meters (models/spectrum_analyzer.py);
 * an on-device variant of the golden band-mean law (models/golden.py is the

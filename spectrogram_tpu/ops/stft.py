@@ -32,15 +32,6 @@ import jax.numpy as jnp
 from spectrogram_tpu.config import SpectrogramConfig
 
 
-def hann_window_np(window_size: int) -> "np.ndarray":
-    """Periodic Hann as numpy (for kernel constants; same law as
-    hann_window)."""
-    import numpy as np
-
-    i = np.arange(window_size, dtype=np.float32)
-    return (0.5 * (1.0 - np.cos(2.0 * np.pi * i / window_size))).astype(np.float32)
-
-
 def hann_window(window_size: int, dtype=jnp.float32) -> jax.Array:
     """Periodic Hann window: 0.5 * (1 - cos(2*pi*i / window_size)).
 
@@ -68,9 +59,8 @@ def frame_signal(pcm: jax.Array, cfg: SpectrogramConfig) -> jax.Array:
     semantics of audio_transform.rs:34-42.
 
     For small static row counts (the streaming push case) the frames are
-    built from n static slices — XLA lowers those to plain copies, where the
-    equivalent fancy-index gather can scalarize/compile pathologically on
-    TPU.  Large offline row counts fall back to the gather.
+    built from n static slices, which XLA lowers to plain copies.  Large
+    offline row counts use a fancy-index gather instead.
     """
     t = pcm.shape[-2]
     n = num_rows(t, cfg)
@@ -117,9 +107,8 @@ def stft_frame(frame: jax.Array, cfg: SpectrogramConfig) -> jax.Array:
 def stft_frame_planar(frame: jax.Array, cfg: SpectrogramConfig) -> jax.Array:
     """As stft_frame but channels-planar: [..., 2, num_bins].
 
-    The TPU-native layout: the bin axis stays minor (lane dimension), so
-    downstream matmuls and kernels see contiguous [*, bins] planes instead
-    of stride-2 interleaved channels.
+    The bin axis stays minor, so downstream matmuls see contiguous
+    [*, bins] planes instead of stride-2 interleaved channels.
     """
     left, right = _stft_frame_lr(frame, cfg)
     return jnp.stack([left, right], axis=-2)
@@ -128,7 +117,7 @@ def stft_frame_planar(frame: jax.Array, cfg: SpectrogramConfig) -> jax.Array:
 def stft_rows(pcm: jax.Array, cfg: SpectrogramConfig) -> jax.Array:
     """[..., T, 2] PCM -> [..., n_rows, num_bins, 2] spectrogram rows.
 
-    The golden reference for every fused/production STFT path in this
+    The golden reference for every production STFT path in this
     framework.  Pure jnp + XLA FFT; works batched over arbitrary leading axes.
     """
     return stft_frame(frame_signal(pcm, cfg), cfg)

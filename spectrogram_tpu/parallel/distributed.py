@@ -1,13 +1,13 @@
 """Multi-host serving: process-spanning meshes + host-local ingest shards.
 
 Fulfills SURVEY.md §2's comm-backend row (`jax.distributed` + XLA collectives
-over ICI/DCN).  The reference is a single-process desktop app; its one
+between hosts).  The reference is a single-process desktop app; its one
 cross-thread boundary is the SPSC ring handed from the audio callback to the
 UI thread (reference src/devices/audio_input_list_model.rs:30).  At serving
 scale the same boundary becomes a cross-HOST one: every host captures/receives
 the PCM for ITS OWN stream shard, drains it from a host-local RingBank, and
 the device mesh stitches the shards into one global batch — samples never
-cross DCN, only the (tiny) metrics reductions do.
+cross hosts, only the (tiny) metrics reductions do.
 
 Topology contract: the global mesh orders devices process-contiguously (JAX's
 default `jax.devices()` order), so a 1-D `streams` mesh gives every process a
@@ -34,9 +34,10 @@ def initialize(
 ) -> None:
     """Bring up the JAX distributed runtime (idempotent).
 
-    On TPU pods with standard env plumbing, call with no arguments (JAX
-    autodetects the coordinator); on hand-rolled clusters pass the trio
-    explicitly.  Single-process callers may skip this entirely.
+    Where a cluster manager tells JAX about the cluster, call with no
+    arguments (JAX autodetects the coordinator); otherwise pass the trio
+    explicitly (e.g. `coordinator_address="localhost:<port>"` on one
+    host).  Single-process callers may skip this entirely.
 
     Must be the process's FIRST JAX call: anything that initializes the XLA
     backends (even `jax.process_count()`) makes distributed init impossible,
@@ -104,7 +105,7 @@ def make_global_chunk(mesh, local_chunk: np.ndarray, n_streams: int) -> jax.Arra
     this process's local [local_streams, ...] host chunk.
 
     Pure process-local data movement: each host only uploads its own shard
-    (`jax.make_array_from_process_local_data`); no PCM crosses DCN.
+    (`jax.make_array_from_process_local_data`); no PCM crosses hosts.
     """
     from jax.sharding import NamedSharding, PartitionSpec as P
 

@@ -2,21 +2,22 @@
 
 The reference is a single-process, two-thread program (SURVEY.md §2,
 "Parallelism"); its only concurrency is one SPSC ring between the audio
-callback and the UI thread.  The TPU-native scaling story is data parallelism
+callback and the UI thread.  The scaling story here is data parallelism
 over a 1-D `streams` mesh axis:
 
 * every per-stream array (carry, ring, palette ids, PCM chunks, RGBA rows) is
   sharded along `streams`;
 * the batch-shared scalars (cursor, row counter) are replicated;
 * steady state needs NO collectives — streams are embarrassingly parallel;
-  the only cross-chip traffic is monitoring reductions (`psum` of row/drop
-  counters), which ride the ICI.
+  the only cross-device traffic is monitoring reductions (`psum` of row/drop
+  counters).  The mesh stays 1-D: the algorithm has one axis, and the
+  devices of one host are joined all to all.
 
 Two equivalent entry points:
 * `sharded_push`: `jax.jit` with explicit NamedShardings (GSPMD partitioning).
 * `shard_map_step`: explicit per-shard SPMD with a `psum` metrics reduction,
-  for when the per-chip code must be spelled out (and as the pattern for
-  future cross-chip features).
+  for when the per-device code must be spelled out (and as the pattern for
+  future cross-device features).
 """
 
 from __future__ import annotations
@@ -42,55 +43,28 @@ def make_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
     return Mesh(np.array(devs), (STREAM_AXIS,))
 
 
-def state_shardings(
-    mesh: Mesh, carry_ndim: int = 3, n_tables: int = 0,
-    bw_marker: bool = False,
-) -> StreamState:
+def state_shardings(mesh: Mesh) -> StreamState:
     """NamedShardings for every StreamState leaf: stream-sharded arrays,
-    replicated scalars.  `carry_ndim` tracks the pipeline's carry format
-    (3 = planar [S, 2, C]; 4 = transposed [S, 2, n1, C/n1]) — the stream
-    axis leads either way.  `n_tables` is the pipeline's pre-picked kernel
-    table count (0 static-palette, 1 built-in registry, 2 generic); the
-    [S, R*4] tables shard along streams like every per-stream array.
-    `bw_marker` appends the replicated zero-size blockwise-auto sentinel
-    leaf (see SpectrogramPipeline._bw_marker) the pipeline's init_state
-    emits under blockwise_palettes="auto"."""
+    replicated scalars."""
     def s(*spec):
         return NamedSharding(mesh, P(*spec))
 
-    tables = tuple(s(STREAM_AXIS, None) for _ in range(n_tables))
-    if bw_marker:
-        tables = tables + (s(),)
     return StreamState(
-        carry=s(STREAM_AXIS, *([None] * (carry_ndim - 1))),
+        carry=s(STREAM_AXIS, None, None),
         ring=s(STREAM_AXIS, None, None, None),
         cursor=s(),
         palette_id=s(STREAM_AXIS),
         row_count=s(),
-        tables=tables,
     )
 
 
-def _carry_ndim(pipeline: SpectrogramPipeline) -> int:
-    return 4 if getattr(pipeline, "carry_is_transposed",
-                    getattr(pipeline, "carry_transposed", False)) else 3
-
-
-def _n_tables(pipeline: SpectrogramPipeline) -> int:
-    if getattr(pipeline, "static_table", None) is not None:
-        return 0
-    return 1 if getattr(pipeline, "builtin_tables", None) is not None else 2
-
-
-def _auto_marker(pipeline: SpectrogramPipeline) -> bool:
-    """Mirror init_state's blockwise-auto outcome (an all-one-palette
-    layout is always clustered, so the marker is present exactly when the
-    auto policy applies to the single-array builtin registry)."""
-    return (
-        getattr(pipeline, "blockwise_palettes", False) == "auto"
-        and getattr(pipeline, "static_table", None) is None
-        and getattr(pipeline, "builtin_tables", None) is not None
-        and getattr(pipeline, "colormap_backend", None) == "pallas"
+def _state_specs() -> StreamState:
+    return StreamState(
+        carry=P(STREAM_AXIS, None, None),
+        ring=P(STREAM_AXIS, None, None, None),
+        cursor=P(),
+        palette_id=P(STREAM_AXIS),
+        row_count=P(),
     )
 
 
@@ -98,88 +72,18 @@ def chunk_sharding(mesh: Mesh) -> NamedSharding:
     return NamedSharding(mesh, P(STREAM_AXIS, None, None))
 
 
+def _rgba_spec(packed: bool) -> P:
+    """Output rows spec; packed pipelines emit rank-3 [S, k, H] int32."""
+    return P(STREAM_AXIS, None, None) if packed else P(STREAM_AXIS, None, None, None)
+
+
 def rgba_sharding(mesh: Mesh, packed: bool = False) -> NamedSharding:
-    """Output rows sharding; packed pipelines emit rank-3 [S, k, H] int32."""
-    spec = (
-        P(STREAM_AXIS, None, None) if packed else P(STREAM_AXIS, None, None, None)
-    )
-    return NamedSharding(mesh, spec)
+    return NamedSharding(mesh, _rgba_spec(packed))
 
 
-def _resort_per_shard(
-    pipeline: SpectrogramPipeline, state: StreamState, n_shards: int
-) -> StreamState:
-    """PER-SHARD palette sort for an external-order state about to be
-    placed on an `n_shards`-device mesh: one stable argsort per shard
-    slice (view blocks = shard slices, perm values global-but-confined,
-    `SpectrogramPipeline._view_sorted_tables`), so every device's local
-    view is self-contained under shard_map and the GSPMD gathers never
-    cross ICI.  Self-gating exactly like set_palette's sharded branch:
-    carry-sort streaming pipelines with the built-in registry, scattered
-    concrete layouts whose shard-sorted form passes the blockwise
-    economics; everything else passes through unchanged."""
-    s = int(state.palette_id.shape[0])
-    if (
-        n_shards <= 1
-        or s % n_shards
-        or not pipeline._palette_sort_eligible(state.tables)
-        or not pipeline.carry_sort_mode
-        or pipeline.blockwise_palettes not in ("auto", True)
-    ):
-        return state
-    layout = np.asarray(state.palette_id, np.int64)
-    if pipeline._blockwise_auto_decision(layout):
-        return state  # already clustered: the marker path needs no gathers
-    st = pipeline._view_sorted_tables(state.tables, layout, s // n_shards)
-    if st is None:
-        return state
-    return state._replace(
-        tables=st, carry=jnp.take(state.carry, st[1], axis=0)
-    )
-
-
-def shard_state(
-    state: StreamState, mesh: Mesh, pipeline: SpectrogramPipeline | None = None
-) -> StreamState:
-    """Place an (unsharded) state onto the mesh.  Uniform-palette tables
-    ([1, R*4], from a scalar set_palette) replicate — there is no stream
-    axis to shard.  Palette-sorted states (palette_sort defaults on) are
-    re-sorted PER SHARD SLICE when `pipeline` is passed: the single-
-    process permutation (block-relative or whole-state) is undone, then
-    each shard slice argsorts independently so scattered multi-tenant
-    layouts keep the blockwise colormap on every chip with no cross-ICI
-    gathers.  Without `pipeline`, sorted states raise (the stored
-    permutation cannot cross shard slices)."""
-    if SpectrogramPipeline._tables_perm(state.tables) is not None:
-        if pipeline is None:
-            raise ValueError(
-                "palette-sorted states cannot be sharded: the stored sort "
-                "permutation indexes across shard slices.  Pass the "
-                "pipeline (shard_state(state, mesh, pipeline)) — it "
-                "re-sorts per shard slice — or call "
-                "pipeline.unsort_state(state) first."
-            )
-        state = pipeline.unsort_state(state)
-    n_shards = int(mesh.shape[STREAM_AXIS])
-    if pipeline is not None:
-        state = _resort_per_shard(pipeline, state, n_shards)
-    if SpectrogramPipeline._tables_perm(state.tables) is not None:
-        ss = state_shardings(mesh, state.carry.ndim, 0)
-        ss = ss._replace(tables=tuple(
-            NamedSharding(mesh, sp)
-            for sp in _state_tables_specs(state.tables, n_shards)
-        ))
-        return jax.device_put(state, ss)
-    n_real = sum(1 for t in state.tables if t.ndim == 2)
-    ss = state_shardings(
-        mesh, state.carry.ndim, n_real,
-        bw_marker=len(state.tables) > n_real,
-    )
-    if state.tables and state.tables[0].shape[0] == 1:
-        ss = ss._replace(
-            tables=tuple(NamedSharding(mesh, P()) for _ in state.tables)
-        )
-    return jax.device_put(state, ss)
+def shard_state(state: StreamState, mesh: Mesh) -> StreamState:
+    """Place an (unsharded) state onto the mesh."""
+    return jax.device_put(state, state_shardings(mesh))
 
 
 def sharded_init(
@@ -192,76 +96,17 @@ def sharded_init(
     straight out of the compiled init."""
     return jax.jit(
         functools.partial(pipeline.init_state, n_streams, palette_id=palette_id),
-        out_shardings=state_shardings(
-            mesh, _carry_ndim(pipeline), _n_tables(pipeline),
-            bw_marker=_auto_marker(pipeline),
-        ),
+        out_shardings=state_shardings(mesh),
     )()
 
 
-def _perm_shard_confined(perm, n_shards: int) -> bool:
-    """True when a length-4 sort permutation's values stay inside their
-    own shard slice — the PER-SHARD sorted form `shard_state` builds.
-    Whole-state global sorts (values crossing slices) fail: their local
-    views are not self-contained under shard_map."""
-    p = np.asarray(perm)
-    s = p.shape[0]
-    if n_shards <= 0 or s % n_shards:
-        return False
-    bs = s // n_shards
-    blocks = p.reshape(n_shards, bs)
-    lo = np.arange(n_shards, dtype=p.dtype)[:, None] * bs
-    return bool(((blocks >= lo) & (blocks < lo + bs)).all())
-
-
-def _state_tables_specs(tables: tuple, n_shards: int | None = None) -> tuple:
-    """P specs for a CONCRETE state's tables tuple: per-stream [S, R*4]
-    tables shard over streams; uniform [1, R*4] tables and the zero-size
-    blockwise marker replicate.  PER-SHARD palette-sorted states (the
-    length-4 tuple `shard_state` builds, perm values confined to shard
-    slices) shard their perm/inv leaves over streams; block-relative
-    length-3 sorted states and whole-state global sorts cannot be
-    sharded — unsort first (`shard_state(state, mesh, pipeline)` or
-    `pipeline.unsort_state`)."""
-    if SpectrogramPipeline._tables_perm(tables) is not None:
-        if SpectrogramPipeline._tables_perm_global(tables) and (
-            n_shards is None or _perm_shard_confined(tables[1], n_shards)
-        ):
-            return (P(STREAM_AXIS, None), P(STREAM_AXIS), P(STREAM_AXIS),
-                    P())
-        raise ValueError(
-            "this palette-sorted state cannot be sharded: the stored sort "
-            "permutation indexes across shard slices.  Re-shard through "
-            "shard_state(state, mesh, pipeline) — it unsorts and re-sorts "
-            "PER SHARD SLICE — or call pipeline.unsort_state first."
-        )
-    return tuple(
-        P(STREAM_AXIS, None) if t.ndim == 2 and t.shape[0] != 1 else P()
-        for t in tables
-    )
-
-
-def sharded_push(pipeline: SpectrogramPipeline, mesh: Mesh,
-                 state: StreamState | None = None):
+def sharded_push(pipeline: SpectrogramPipeline, mesh: Mesh):
     """jit-compiled push with stream-axis sharding constraints.
 
     Returns step(state, chunk) -> (state, rgba_u8).  The stream count must be
-    divisible by mesh size.  State is donated: the ring never leaves HBM.
-
-    Pass `state` when its palette layout class differs from init_state's —
-    e.g. a scattered per-stream layout dropped the blockwise-auto marker,
-    or a scalar set_palette produced replicated uniform tables — so the
-    table shardings follow the concrete tuple instead of the init-class
-    assumption."""
-    ss = state_shardings(mesh, _carry_ndim(pipeline), _n_tables(pipeline),
-                         bw_marker=_auto_marker(pipeline))
-    if state is not None:
-        ss = ss._replace(tables=tuple(
-            NamedSharding(mesh, spec)
-            for spec in _state_tables_specs(
-                state.tables, int(mesh.shape[STREAM_AXIS])
-            )
-        ))
+    divisible by mesh size.  State is donated: the ring never leaves device
+    memory."""
+    ss = state_shardings(mesh)
     return jax.jit(
         pipeline.push_impl,
         in_shardings=(ss, chunk_sharding(mesh)),
@@ -270,57 +115,24 @@ def sharded_push(pipeline: SpectrogramPipeline, mesh: Mesh,
     )
 
 
-def shard_map_step(pipeline: SpectrogramPipeline, mesh: Mesh,
-                   state: StreamState | None = None):
-    """Explicit SPMD push: each chip runs the pipeline on its stream shard;
-    a psum over ICI aggregates the global row counter (the only collective).
+def shard_map_step(pipeline: SpectrogramPipeline, mesh: Mesh):
+    """Explicit SPMD push: each device runs the pipeline on its stream shard;
+    a psum aggregates the global row counter (the only collective).
 
-    Returns step(state, chunk) -> (state, rgba_u8, global_rows).
+    Returns step(state, chunk) -> (state, rgba_u8, global_rows)."""
+    state_specs = _state_specs()
 
-    Like `sharded_push`, pass `state` when its palette layout class differs
-    from init_state's (scattered layouts without the blockwise marker,
-    uniform [1, R*4] tables) so the table specs follow the concrete tuple."""
-    state_specs = StreamState(
-        carry=P(STREAM_AXIS, *([None] * (_carry_ndim(pipeline) - 1))),
-        ring=P(STREAM_AXIS, None, None, None),
-        cursor=P(),
-        palette_id=P(STREAM_AXIS),
-        row_count=P(),
-        tables=(
-            _state_tables_specs(
-                state.tables, int(mesh.shape[STREAM_AXIS])
-            ) if state is not None
-            else tuple(
-                P(STREAM_AXIS, None) for _ in range(_n_tables(pipeline))
-            ) + ((P(),) if _auto_marker(pipeline) else ())
-        ),
-    )
-
-    def per_chip(state: StreamState, chunk: jax.Array):
+    def per_device(state: StreamState, chunk: jax.Array):
         new_state, rgba = pipeline.push_impl(state, chunk)
         local_rows = jnp.asarray(rgba.shape[0] * pipeline.chunk_hops, jnp.int32)
         global_rows = jax.lax.psum(local_rows, STREAM_AXIS)
         return new_state, rgba, global_rows
 
-    rgba_spec = (
-        P(STREAM_AXIS, None, None)
-        if pipeline.packed_output
-        else P(STREAM_AXIS, None, None, None)
-    )
     mapped = jax.shard_map(
-        per_chip,
+        per_device,
         mesh=mesh,
         in_specs=(state_specs, P(STREAM_AXIS, None, None)),
-        out_specs=(state_specs, rgba_spec, P()),
-        # Pallas calls inside the body produce ShapeDtypeStructs without
-        # varying-mesh-axes annotations; the out_specs above already pin the
-        # sharding contract, so skip the redundant VMA check.  NOTE this
-        # disables the check for the WHOLE body (JAX has no per-call VMA
-        # annotation for pallas_call outputs yet); the guard against a future
-        # missing-psum bug is the exact sharded-vs-unsharded parity test in
-        # tests/test_sharding.py — keep it exact, and re-enable check_vma
-        # once pallas_call outputs can be annotated.
-        check_vma=False,
+        out_specs=(state_specs, _rgba_spec(pipeline.packed_output), P()),
     )
     return jax.jit(mapped, donate_argnums=0)
 

@@ -56,28 +56,9 @@ def save_state(
     geometry (plus chunk_hops/viewport_rows when `pipeline` is given)."""
     path = pathlib.Path(path)
     host = jax.device_get(state)
-    carry = np.asarray(host.carry)
-    # Palette-sorted states: checkpoints always persist the EXTERNAL stream
-    # order (portable across palette_sort settings).  In carry-sort mode
-    # (streaming pipelines) the carry is at rest in sorted order — undo the
-    # stored block-relative permutation before writing.
-    perm = SpectrogramPipeline._tables_perm(state.tables)
-    if perm is not None and getattr(pipeline, "carry_sort_mode", None) is None:
-        raise ValueError(
-            "saving a palette-sorted state requires pipeline= (the carry "
-            "order on disk depends on the pipeline's carry_sort_mode)"
-        )
-    if perm is not None and pipeline.carry_sort_mode:
-        ginv = np.asarray(
-            pipeline._global_perm(
-                perm[1], carry.shape[0],
-                SpectrogramPipeline._tables_perm_global(state.tables),
-            )
-        )
-        carry = carry[ginv]
     np.savez_compressed(
         path.with_suffix(".npz"),
-        carry=carry,
+        carry=np.asarray(host.carry),
         ring=np.asarray(host.ring, dtype=np.float32),  # bf16 -> f32 container
         cursor=np.asarray(host.cursor),
         palette_id=np.asarray(host.palette_id),
@@ -114,44 +95,20 @@ def load_state(path, pipeline: SpectrogramPipeline) -> StreamState:
     z = np.load(path.with_suffix(".npz"))
     ring_dtype = jnp.dtype(str(z["ring_dtype"]))
     carry = np.asarray(z["carry"])
-    # carry-format migration: checkpoints store whichever format the saving
-    # pipeline used (planar [S, 2, C] or transposed [S, 2, n1, C/n1]); the
-    # two are a deterministic reshape+transpose apart, so a restore into a
-    # pipeline of the other format converts instead of failing.
-    want_t = getattr(pipeline, "carry_is_transposed",
-                 getattr(pipeline, "carry_transposed", False))
-    if carry.ndim == 3 and want_t:
-        n1 = pipeline.fft_plan.n1
-        s_, _, c_ = carry.shape
-        carry = carry.reshape(s_, 2, c_ // n1, n1).swapaxes(2, 3)
-    elif carry.ndim == 4 and not want_t:
-        s_, _, n1_, cm = carry.shape
-        carry = carry.swapaxes(2, 3).reshape(s_, 2, n1_ * cm)
-    palette_id = jnp.asarray(z["palette_id"])
-    tables = pipeline.restored_tables_for(palette_id)
-    # carry-sort pipelines keep the carry at rest in sorted order; the
-    # checkpoint stores external order, so re-apply the (deterministic)
-    # permutation the restored tables carry.
-    perm = SpectrogramPipeline._tables_perm(tables)
-    if perm is not None and pipeline.carry_sort_mode:
-        carry = np.asarray(
-            carry[np.asarray(pipeline._global_perm(
-                perm[0], carry.shape[0],
-                SpectrogramPipeline._tables_perm_global(tables),
-            ))]
+    if carry.ndim != 3 or carry.dtype != np.float32:
+        # Older pipelines could keep the carry transposed ([S, 2, n1, C/n1])
+        # or as int16 sample planes; neither format exists any more.
+        raise ValueError(
+            f"checkpoint carry is {carry.dtype} {carry.shape}, a sample-plane "
+            f"format this version no longer reads (expected float32 "
+            f"[S, 2, C]); start a fresh state"
         )
     state = StreamState(
         carry=jnp.asarray(carry),
         ring=jnp.asarray(z["ring"]).astype(ring_dtype),
         cursor=jnp.asarray(z["cursor"]),
-        palette_id=palette_id,
+        palette_id=jnp.asarray(z["palette_id"]),
         row_count=jnp.asarray(z["row_count"]),
-        # kernel tables are DERIVED state (palette_id x the restoring
-        # pipeline's registry) — recomputed, never persisted, so a
-        # checkpoint restores cleanly into a pipeline with different
-        # schemes; the blockwise-auto marker and the palette-sort class
-        # are re-decided from the restored (concrete) layout
-        tables=tables,
     )
     import functools
 
@@ -159,14 +116,8 @@ def load_state(path, pipeline: SpectrogramPipeline) -> StreamState:
         functools.partial(pipeline.init_state, state.palette_id.shape[0])
     )
     for name in StreamState._fields:
-        got = [x.shape for x in jax.tree.leaves(getattr(state, name))]
-        want = [x.shape for x in jax.tree.leaves(getattr(expected, name))]
-        if name == "tables":
-            # 1-D tables entries track the palette LAYOUT class, not
-            # geometry — the zero-size blockwise-auto marker and the
-            # palette-sort perm/inv vectors — exempt from the shape contract
-            got = [s_ for s_ in got if len(s_) != 1]
-            want = [s_ for s_ in want if len(s_) != 1]
+        got = getattr(state, name).shape
+        want = getattr(expected, name).shape
         if got != want:
             raise ValueError(
                 f"checkpoint field {name} shape {got} != pipeline "
@@ -185,16 +136,7 @@ def save_sharded(
     import orbax.checkpoint as ocp
 
     path = pathlib.Path(path).resolve()
-    if SpectrogramPipeline._tables_perm(state.tables) is not None:
-        raise ValueError(
-            "palette-sorted states are single-process (never sharded): "
-            "save with save_state, which persists the external carry order"
-        )
     payload = state._asdict()
-    # kernel tables are derived (palette_id x scheme registry): recomputed
-    # on load, never persisted — keeps checkpoints portable across registry
-    # changes and smaller on disk
-    payload.pop("tables", None)
     # streaming states (store_ring=False) carry a ZERO-SIZE ring leaf,
     # which orbax refuses to serialize; drop empty leaves and let
     # load_sharded rebuild them from the pipeline template
@@ -236,10 +178,7 @@ def load_sharded(path, pipeline: SpectrogramPipeline, mesh=None) -> StreamState:
         template = jax.eval_shape(
             functools.partial(pipeline.init_state, n_streams)
         )
-        stored_fields = [
-            f for f in StreamState._fields
-            if f != "tables" and f in meta.item_metadata
-        ]
+        stored_fields = [f for f in StreamState._fields if f in meta.item_metadata]
         for name in stored_fields:
             got = meta.item_metadata[name]
             want = getattr(template, name)
@@ -250,13 +189,9 @@ def load_sharded(path, pipeline: SpectrogramPipeline, mesh=None) -> StreamState:
                     f"chunk geometry changed; start a fresh state)"
                 )
         if mesh is not None:
-            from spectrogram_tpu.parallel.mesh import (
-                _carry_ndim, _n_tables, state_shardings,
-            )
+            from spectrogram_tpu.parallel.mesh import state_shardings
 
-            shardings = state_shardings(
-                mesh, _carry_ndim(pipeline), _n_tables(pipeline)
-            )
+            shardings = state_shardings(mesh)
         else:
             shardings = jax.tree.map(lambda _: None, template)
         abstract = {
@@ -271,7 +206,7 @@ def load_sharded(path, pipeline: SpectrogramPipeline, mesh=None) -> StreamState:
     # zero-size leaves (a streaming state's empty ring) are never stored
     # (orbax rejects them) — rebuild them from the template
     for name in StreamState._fields:
-        if name != "tables" and name not in restored:
+        if name not in restored:
             want = getattr(template, name)
             if want.size:
                 raise ValueError(
@@ -280,26 +215,7 @@ def load_sharded(path, pipeline: SpectrogramPipeline, mesh=None) -> StreamState:
                     f"mismatch between save and load pipelines?)"
                 )
             restored[name] = jnp.zeros(want.shape, want.dtype)
-    # tables are derived state — recompute from the restored palette ids on
-    # whatever sharding they landed with (the pick is a per-stream map, so
-    # GSPMD keeps it stream-sharded)
-    tables_fn = jax.jit(
-        pipeline.state_tables_for,
-        out_shardings=(shardings.tables if mesh is not None else None),
-    )
-    tables = tuple(tables_fn(restored["palette_id"]))
-    pid_r = restored["palette_id"]
-    if (
-        getattr(pipeline, "blockwise_palettes", False) == "auto"
-        and len(tables) == 1
-        and pipeline.colormap_backend == "pallas"
-        and getattr(pid_r, "is_fully_addressable", True)
-        and pipeline._blockwise_auto_decision(np.asarray(pid_r, np.int64))
-    ):
-        # re-decide the blockwise-auto marker from the restored (concrete)
-        # layout; the sharded table pick above is untouched
-        tables = tables + (pipeline._bw_marker(),)
-    state = StreamState(**restored, tables=tables)
+    state = StreamState(**restored)
     _check_cursor_alignment(state, pipeline, pipeline_meta)
     return state
 

@@ -1,7 +1,7 @@
 """Terminal live viewer: ANSI truecolor half-block rendering + hotkeys.
 
 The reference's headline experience is a live scrolling GL spectrogram with
-runtime device/palette dropdowns (reference src/main.rs:62-151).  The TPU
+runtime device/palette dropdowns (reference src/main.rs:62-151).  This
 framework is headless, so the equivalent surface is the terminal: each
 character cell shows two vertical pixels via the upper-half-block glyph
 (fg = top pixel, bg = bottom pixel, 24-bit color), the frequency axis runs

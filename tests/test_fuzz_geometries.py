@@ -66,44 +66,25 @@ def test_random_geometry_streams_and_matches(seed):
     assert vp.shape[1:] == (p.viewport_rows, cfg.viewport_height, 4)
 
 
-def test_large_and_reference_geometries_fused_interpret(rng):
-    """The random fuzz caps windows at ~700 samples; this pins the two
-    geometry classes that have actually broken kernels on hardware: the
-    reference-native 2400/4800 (48x100 plan — the NO-FLIP v4 path, the
-    Mosaic-gate regression of round 3) and a large 4096/8192 window
-    (64x128 plan).  Interpret mode, tiny batches, fused chain vs the
-    mxu+xla reference path."""
-    import spectrogram_tpu.ops.pallas.colormap_kernel as ck
-    import spectrogram_tpu.ops.pallas.stft_kernel as sk
-    from spectrogram_tpu.models.spectrogram import SpectrogramPipeline
+@pytest.mark.parametrize("window", [2400, 4096])
+def test_large_and_reference_geometries_mxu_matches_xla(rng, window):
+    """The random fuzz caps windows at ~700 samples; this pins the
+    reference-native 2400/4800 geometry (48x100 plan) and a large 4096/8192
+    window (64x128 plan): the four-step matmul push against the jnp.fft
+    push on the same chunk."""
+    from reference import visible_diff
     from spectrogram_tpu.ops.mxu_fft import make_plan
 
-    geoms = [
-        SpectrogramConfig(sample_rate=48000.0, viewport_height=64),   # 2400/4800
-        SpectrogramConfig(sample_rate=48000.0,                        # 4096/8192
-                          window_period=4096 / 48000.0, viewport_height=64),
-    ]
-    orig = (ck.colormap_planes_builtin, ck.colormap_planes_banded,
-            sk.stft_mag_fused2)
-    ck.colormap_planes_builtin = lambda *a, **kw: orig[0](*a, **{**kw, "interpret": True})
-    ck.colormap_planes_banded = lambda *a, **kw: orig[1](*a, **{**kw, "interpret": True})
-    sk.stft_mag_fused2 = lambda *a, **kw: orig[2](*a, **{**kw, "interpret": True})
-    try:
-        for cfg in geoms:
-            plan = make_plan(cfg)
-            assert plan is not None and plan.n1 % 2 == 0, (cfg, plan)
-            p_ref = SpectrogramPipeline(cfg, chunk_hops=1, store_ring=False,
-                                        packed_output=True, colormap_backend="xla")
-            p_fus = SpectrogramPipeline(cfg, chunk_hops=1, store_ring=False,
-                                        packed_output=True, stft_backend="pallas")
-            chunk = jnp.asarray(
-                rng.standard_normal((2, p_ref.chunk_size, 2)).astype(np.float32) * 0.2
-            )
-            _, out_ref = p_ref.push(p_ref.init_state(2), chunk)
-            _, out_fus = p_fus.push(p_fus.init_state(2), chunk)
-            a = np.asarray(out_ref).view(np.uint8).astype(int)
-            b = np.asarray(out_fus).view(np.uint8).astype(int)
-            assert np.abs(a - b).max() <= 1, (cfg, np.abs(a - b).max())
-    finally:
-        (ck.colormap_planes_builtin, ck.colormap_planes_banded,
-         sk.stft_mag_fused2) = orig
+    cfg = SpectrogramConfig(sample_rate=48000.0, window_period=window / 48000.0,
+                            viewport_height=64)
+    plan = make_plan(cfg)
+    assert plan is not None and plan.n1 % 2 == 0, (cfg, plan)
+    kw = dict(chunk_hops=1, store_ring=False)
+    p_mxu = SpectrogramPipeline(cfg, stft_backend="mxu", **kw)
+    p_xla = SpectrogramPipeline(cfg, stft_backend="xla", **kw)
+    chunk = jnp.asarray(
+        rng.standard_normal((2, p_mxu.chunk_size, 2)).astype(np.float32) * 0.2
+    )
+    _, out_mxu = p_mxu.push(p_mxu.init_state(2), chunk)
+    _, out_xla = p_xla.push(p_xla.init_state(2), chunk)
+    assert visible_diff(out_mxu, out_xla)[0] <= 1.0 + 1e-6

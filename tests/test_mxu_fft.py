@@ -1,4 +1,4 @@
-"""MXU matmul-FFT parity vs the XLA-FFT golden model."""
+"""Four-step matmul FFT (`stft_backend="mxu"`) parity vs the XLA-FFT golden model."""
 
 import numpy as np
 import jax.numpy as jnp

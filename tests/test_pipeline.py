@@ -3,6 +3,7 @@ the streaming path and the one-shot golden path."""
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from spectrogram_tpu.config import SpectrogramConfig
 from spectrogram_tpu.models.spectrogram import SpectrogramPipeline
@@ -119,57 +120,6 @@ def test_carry_matches_stft_helper():
     assert p.carry_size == stft_ops.carry_size(CFG) == CFG.window_size - CFG.hop_size
 
 
-def test_fused_chain_matches_default_backend(rng):
-    """stft_backend='pallas' (fused kernel chain, interpret on CPU) must
-    match the default mxu+xla path."""
-    p_ref = SpectrogramPipeline(CFG, chunk_hops=2, packed_output=True,
-                                colormap_backend="xla")
-    import spectrogram_tpu.ops.pallas.colormap_kernel as ck
-    import spectrogram_tpu.ops.pallas.stft_kernel as sk
-    import jax
-
-    # interpret mode on CPU for all pallas entry points (the fused push may
-    # route via the plane, buf, or transposed-carry kernels)
-    orig_ck, orig_sk = ck.colormap_planes_builtin, sk.stft_mag_fused2
-    orig_skt = sk.stft_mag_fused2_t
-    orig_ska = sk.stft_mag_fused2_allk
-    ck_i = lambda *a, **kw: orig_ck(*a, **{**kw, "interpret": True})
-    sk_i = lambda *a, **kw: orig_sk(*a, **{**kw, "interpret": True})
-    skt_i = lambda *a, **kw: orig_skt(*a, **{**kw, "interpret": True})
-    ska_i = lambda *a, **kw: orig_ska(*a, **{**kw, "interpret": True})
-    ck.colormap_planes_builtin = ck_i
-    sk.stft_mag_fused2 = sk_i
-    sk.stft_mag_fused2_t = skt_i
-    sk.stft_mag_fused2_allk = ska_i
-    try:
-        p_fused = SpectrogramPipeline(CFG, chunk_hops=2, packed_output=True,
-                                      stft_backend="pallas")
-        s_ref = p_ref.init_state(3, palette_id=0)
-        s_fus = p_fused.init_state(3, palette_id=0)
-        for i in range(3):
-            chunk = jnp.asarray(
-                rng.standard_normal((3, p_ref.chunk_size, 2)).astype(np.float32) * 0.2
-            )
-            s_ref, out_ref = p_ref.push(s_ref, chunk)
-            s_fus, out_fus = p_fused.push(s_fus, chunk)
-            a = np.asarray(out_ref).view(np.uint8)
-            b = np.asarray(out_fus).view(np.uint8)
-            diff = np.abs(a.astype(int) - b.astype(int))
-            assert diff.max() <= 1, diff.max()
-        assert int(s_fus.cursor) == int(s_ref.cursor)
-        # rings store different bin layouts by design (fused = permuted full
-        # half-spectrum); the rendered viewports must still agree.
-        vp_ref = np.asarray(p_ref.render_viewport(s_ref)).view(np.uint8)
-        vp_fus = np.asarray(p_fused.render_viewport(s_fus)).view(np.uint8)
-        vdiff = np.abs(vp_ref.astype(int) - vp_fus.astype(int))
-        assert vdiff.max() <= 2  # bf16 ring rounding + fp association
-    finally:
-        ck.colormap_planes_builtin = orig_ck
-        sk.stft_mag_fused2 = orig_sk
-        sk.stft_mag_fused2_t = orig_skt
-        sk.stft_mag_fused2_allk = orig_ska
-
-
 def test_push_rejects_wrong_chunk_shape(rng):
     import pytest
 
@@ -195,25 +145,6 @@ def test_push_planar_matches_push(rng):
         p.push_planar(p.init_state(1), jnp.zeros((1, p.chunk_size, 2), jnp.float32))
 
 
-def test_precision_profiles():
-    import pytest
-
-    p_fast = SpectrogramPipeline(CFG, chunk_hops=2, precision_profile="fast")
-    p_exact = SpectrogramPipeline(CFG, chunk_hops=2)
-    import jax
-
-    assert p_fast.precision_cmap == jax.lax.Precision.DEFAULT
-    assert p_fast.precision_stft == jax.lax.Precision.HIGHEST  # always exact
-    assert p_exact.precision_cmap == jax.lax.Precision.HIGHEST
-    with pytest.raises(ValueError):
-        SpectrogramPipeline(CFG, precision_profile="turbo")
-    # both run (CPU: DEFAULT == f32, so outputs match exactly here)
-    chunk = jnp.zeros((1, p_fast.chunk_size, 2), jnp.float32)
-    _, a = p_fast.push(p_fast.init_state(1), chunk)
-    _, b = p_exact.push(p_exact.init_state(1), chunk)
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
 def test_awkward_geometries_fall_back_cleanly(rng):
     """Advisor finding (r1): odd-n1 plans (window 225 @ 9 kHz -> n1=15) and
     pad_factor=1 configs must fall back to the XLA path in push(), matching
@@ -228,7 +159,7 @@ def test_awkward_geometries_fall_back_cleanly(rng):
                             viewport_rows=16, max_frequency=3600.0)
     for cfg in (odd, pf1):
         p = SpectrogramPipeline(cfg, chunk_hops=2)
-        assert p.fft_plan is None and not p.fused_chain  # clean XLA fallback
+        assert p.fft_plan is None  # clean XLA fallback
         pcm = rng.standard_normal((2, p.chunk_size * 2, 2)).astype(np.float32) * 0.3
         s = p.init_state(2)
         emitted = []
@@ -238,23 +169,11 @@ def test_awkward_geometries_fall_back_cleanly(rng):
         streamed = np.concatenate(emitted, axis=1)
         padded = np.concatenate([np.zeros((2, p.carry_size, 2), np.float32), pcm], axis=1)
         np.testing.assert_array_equal(streamed, np.asarray(p.process(jnp.asarray(padded))))
-        # explicitly requesting the unusable backends is a loud error
+        # explicitly requesting the unusable backend is a loud error
         with pytest.raises(ValueError, match="stft_backend"):
             SpectrogramPipeline(cfg, stft_backend="mxu")
-        with pytest.raises(ValueError, match="stft_backend"):
-            SpectrogramPipeline(cfg, stft_backend="pallas")
-
-
-def test_colormap_kernel_rejects_bin_mismatch():
-    import pytest
-    from spectrogram_tpu.ops.pallas import colormap_kernel as ck
-
-    p = make_pipeline()
-    tabs = jnp.zeros((2, 32 * 4), jnp.float32)
-    with pytest.raises(ValueError, match="bins"):
-        ck.colormap_planes_builtin(
-            jnp.zeros((2, CFG.num_bins - 3)), jnp.zeros((2, CFG.num_bins - 3)),
-            tabs, p.resample_t, CFG, interpret=True)
+    with pytest.raises(ValueError, match="unknown stft_backend"):
+        SpectrogramPipeline(CFG, stft_backend="pallas")
 
 
 def test_sanitize_input_contains_nan(rng):
@@ -291,142 +210,6 @@ def test_process_matches_push_with_sanitize(rng):
     np.testing.assert_array_equal(np.asarray(pushed), oneshot)
 
 
-def test_transposed_carry_matches_planar(rng, tmp_path):
-    """transposed_carry=True (measured-negative on v5e, kept opt-in — see
-    the constructor comment) must be numerically identical to the planar
-    fused path, and checkpoints must migrate between the two formats."""
-    import spectrogram_tpu.ops.pallas.colormap_kernel as ck
-    import spectrogram_tpu.ops.pallas.stft_kernel as sk
-    from spectrogram_tpu.utils import checkpoint
-
-    orig_ck, orig_sk = ck.colormap_planes_builtin, sk.stft_mag_fused2
-    orig_skt = sk.stft_mag_fused2_t
-    orig_ska = sk.stft_mag_fused2_allk
-    ck.colormap_planes_builtin = lambda *a, **kw: orig_ck(*a, **{**kw, "interpret": True})
-    sk.stft_mag_fused2 = lambda *a, **kw: orig_sk(*a, **{**kw, "interpret": True})
-    sk.stft_mag_fused2_t = lambda *a, **kw: orig_skt(*a, **{**kw, "interpret": True})
-    sk.stft_mag_fused2_allk = lambda *a, **kw: orig_ska(*a, **{**kw, "interpret": True})
-    try:
-        p_pl = SpectrogramPipeline(CFG, chunk_hops=2, packed_output=True,
-                                   stft_backend="pallas")
-        p_t = SpectrogramPipeline(CFG, chunk_hops=2, packed_output=True,
-                                  stft_backend="pallas", transposed_carry=True)
-        assert not p_pl.carry_transposed and p_t.carry_transposed
-        s_pl = p_pl.init_state(3, palette_id=0)
-        s_t = p_t.init_state(3, palette_id=0)
-        assert s_t.carry.ndim == 4
-        for _ in range(3):
-            chunk = jnp.asarray(
-                rng.standard_normal((3, p_pl.chunk_size, 2)).astype(np.float32) * 0.2
-            )
-            s_pl, out_pl = p_pl.push(s_pl, chunk)
-            s_t, out_t = p_t.push(s_t, chunk)
-            np.testing.assert_array_equal(np.asarray(out_pl), np.asarray(out_t))
-        # carry formats hold the same samples (reshape+transpose apart)
-        n1 = p_t.fft_plan.n1
-        re_pl = np.asarray(s_t.carry).swapaxes(2, 3).reshape(3, 2, -1)
-        np.testing.assert_array_equal(re_pl, np.asarray(s_pl.carry))
-        # checkpoint saved planar restores into a transposed pipeline & back
-        checkpoint.save_state(tmp_path / "pl", s_pl, CFG, p_pl)
-        restored_t = checkpoint.load_state(tmp_path / "pl", p_t)
-        np.testing.assert_array_equal(
-            np.asarray(restored_t.carry), np.asarray(s_t.carry))
-        checkpoint.save_state(tmp_path / "tt", s_t, CFG, p_t)
-        restored_pl = checkpoint.load_state(tmp_path / "tt", p_pl)
-        np.testing.assert_array_equal(
-            np.asarray(restored_pl.carry), np.asarray(s_pl.carry))
-    finally:
-        ck.colormap_planes_builtin = orig_ck
-        sk.stft_mag_fused2 = orig_sk
-        sk.stft_mag_fused2_t = orig_skt
-        sk.stft_mag_fused2_allk = orig_ska
-
-
-def test_static_palette_matches_dynamic(rng):
-    """static_palette (baked-LUT single-palette kernels) must emit exactly
-    the bytes of the dynamic per-row path with every stream on that
-    palette; set_palette refuses (switching = new pipeline)."""
-    import pytest
-
-    p_dyn = make_pipeline(packed_output=True)
-    p_st = make_pipeline(packed_output=True, static_palette="Viridis")
-    pid = p_dyn.scheme_names.index("Viridis")
-    assert p_st.static_palette_id == pid
-    chunk = rng.standard_normal((3, p_dyn.chunk_size, 2)).astype(np.float32) * 0.2
-    s_dyn = p_dyn.init_state(3, palette_id=pid)
-    s_st = p_st.init_state(3)          # pinned to Viridis by construction
-    s_dyn, out_dyn = p_dyn.push(s_dyn, jnp.asarray(chunk))
-    s_st, out_st = p_st.push(s_st, jnp.asarray(chunk))
-    np.testing.assert_array_equal(np.asarray(out_dyn), np.asarray(out_st))
-    # one-shot path agrees too
-    np.testing.assert_array_equal(
-        np.asarray(p_dyn.process(jnp.asarray(chunk), palette_id=pid)),
-        np.asarray(p_st.process(jnp.asarray(chunk))),
-    )
-    with pytest.raises(ValueError, match="static_palette"):
-        p_st.set_palette(s_st, 2)
-
-
-def test_static_palette_stereo_and_validation(rng):
-    import pytest
-
-    p = make_pipeline(packed_output=True,
-                      static_palette="Blue-Yellow-Red (Stereo)")
-    chunk = rng.standard_normal((2, p.chunk_size, 2)).astype(np.float32) * 0.2
-    s = p.init_state(2)
-    _, out = p.push(s, jnp.asarray(chunk))
-    ref = make_pipeline(packed_output=True)
-    pid = ref.scheme_names.index("Blue-Yellow-Red (Stereo)")
-    s2 = ref.init_state(2, palette_id=pid)
-    _, out_ref = ref.push(s2, jnp.asarray(chunk))
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(out_ref))
-    with pytest.raises(ValueError, match="out of range"):
-        make_pipeline(static_palette=99)
-
-
-def test_hoisted_tables_match_per_push_pick(rng):
-    """Round-4 hoist: the pre-picked state.tables + modular table_period
-    index map must be BITWISE equal to the legacy per-push one-hot pick
-    (tables=() fallback), across k>1 window-major rows and per-stream
-    palettes; set_palette must refresh the hoisted tables."""
-    import jax
-
-    p = SpectrogramPipeline(CFG, chunk_hops=4, packed_output=True,
-                            stft_backend="pallas", colormap_backend="pallas",
-                            kernel_interpret=True)
-    dup = lambda st: jax.tree.map(jnp.copy, st)  # push donates its state
-    pids = jnp.asarray([0, 1, 2, 5])
-    s = p.set_palette(p.init_state(4), pids)
-    assert len(s.tables) == 1 and s.tables[0].shape[0] == 4
-    s_legacy = dup(s)._replace(tables=())  # pre-hoist state shape
-    chunk = jnp.asarray(
-        rng.standard_normal((4, p.chunk_size, 2)).astype(np.float32) * 0.2
-    )
-    s, out = p.push(s, chunk)
-    s_legacy, out_legacy = p.push(s_legacy, chunk)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(out_legacy))
-
-    # palette switch refreshes the hoisted tables: equals a fresh pick
-    s2 = p.set_palette(s, jnp.asarray([5, 2, 1, 0]))
-    np.testing.assert_array_equal(
-        np.asarray(s2.tables[0]),
-        np.asarray(p.state_tables_for(jnp.asarray([5, 2, 1, 0]))[0]),
-    )
-    s2_legacy = dup(s2)._replace(tables=())
-    s3, out2 = p.push(s2, chunk)
-    _, out2_legacy = p.push(s2_legacy, chunk)
-    np.testing.assert_array_equal(np.asarray(out2), np.asarray(out2_legacy))
-    s = s3
-
-    # out-of-range ids clamp to the registry instead of rendering black
-    s3 = p.set_palette(s, jnp.asarray([99, -3, 1, 1]))
-    lim = len(p.schemes) - 1
-    np.testing.assert_array_equal(
-        np.asarray(s3.tables[0]),
-        np.asarray(p.state_tables_for(jnp.asarray([lim, 0, 1, 1]))[0]),
-    )
-
-
 def test_render_viewport_width_matches_gl_sampling_law(rng):
     """render_viewport(width=) must equal the GL sampler law computed
     directly: bilinear texel sampling along continuous uv.x with
@@ -456,10 +239,7 @@ def test_render_viewport_width_matches_gl_sampling_law(rng):
             ordered[:, lo] * (1.0 - w)[None, :, None, None]
             + ordered[:, hi] * w[None, :, None, None]
         ).astype(np.float32)
-        want = np.asarray(
-            p._colormap_u8(jnp.asarray(interp), s.palette_id,
-                           picked=p._state_tables(s))
-        )
+        want = np.asarray(p._colormap_u8(jnp.asarray(interp), s.palette_id))
         diff = np.abs(out.astype(int) - want.astype(int))
         assert diff.max() <= 1, (width, diff.max())
     # width == viewport_rows short-circuits to the identity path
@@ -470,21 +250,16 @@ def test_render_viewport_width_matches_gl_sampling_law(rng):
 
 
 def test_uniform_palette_mode_matches_per_stream(rng):
-    """Scalar set_palette -> [1, R*4] uniform tables -> the SMEM-scalar
-    colormap kernel; output must be BITWISE equal to the per-stream path
-    with every stream on that palette (full-loop vs segment-tent tap
-    weights are bit-identical by the exactness argument in
-    _tent_lut_channels)."""
+    """A scalar set_palette (every stream on one palette, the reference's
+    own mode) must equal the per-stream array with that palette everywhere,
+    for pushes and the viewport; switching between the two stays a pure
+    state update."""
     import jax
 
-    p = SpectrogramPipeline(CFG, chunk_hops=4, packed_output=True,
-                            stft_backend="pallas", colormap_backend="pallas",
-                            kernel_interpret=True)
-    dup = lambda st: jax.tree.map(jnp.copy, st)
-    s_uni = p.set_palette(p.init_state(3), 2)            # scalar -> uniform
-    assert s_uni.tables[0].shape[0] == 1, s_uni.tables[0].shape
+    p = SpectrogramPipeline(CFG, chunk_hops=4, packed_output=True)
+    s_uni = p.set_palette(p.init_state(3), 2)
     s_per = p.set_palette(p.init_state(3), jnp.asarray([2, 2, 2]))
-    assert s_per.tables[0].shape[0] == 3
+    np.testing.assert_array_equal(np.asarray(s_uni.palette_id), [2, 2, 2])
     for _ in range(2):
         chunk = jnp.asarray(
             rng.standard_normal((3, p.chunk_size, 2)).astype(np.float32) * 0.2
@@ -492,780 +267,39 @@ def test_uniform_palette_mode_matches_per_stream(rng):
         s_uni, out_u = p.push(s_uni, chunk)
         s_per, out_p = p.push(s_per, chunk)
         np.testing.assert_array_equal(np.asarray(out_u), np.asarray(out_p))
-    # viewport render also rides the uniform tables
     np.testing.assert_array_equal(
         np.asarray(p.render_viewport(s_uni)),
         np.asarray(p.render_viewport(s_per)),
     )
-    # switching uniform -> per-stream -> uniform stays a pure state update
     s_mix = p.set_palette(s_uni, jnp.asarray([0, 1, 2]))
-    assert s_mix.tables[0].shape[0] == 3
-    s_back = p.set_palette(s_mix, 1)
-    assert s_back.tables[0].shape[0] == 1
+    np.testing.assert_array_equal(np.asarray(s_mix.palette_id), [0, 1, 2])
+    # a traced switch is a pure state update too
+    s_back = jax.jit(p.set_palette)(s_mix, jnp.asarray(1))
+    np.testing.assert_array_equal(np.asarray(s_back.palette_id), [1, 1, 1])
 
 
-def test_blockwise_palettes_match_per_row(rng):
-    """Per-block palette uniformity (blockwise_palettes=True): bitwise
-    equal to the per-row path for uniform blocks, mixed blocks, and
-    per-row-varied blocks alike."""
-    import jax
-
-    kw = dict(chunk_hops=4, packed_output=True, stft_backend="pallas",
-              colormap_backend="pallas", kernel_interpret=True)
-    p_bw = SpectrogramPipeline(CFG, blockwise_palettes=True, **kw)
-    p_pr = SpectrogramPipeline(CFG, **kw)
-    # 6 streams: first 3 share a palette (uniform-ish blocks at small ts),
-    # last 3 all different (mixed)
-    s_bw = p_bw.set_palette(p_bw.init_state(6), jnp.asarray([2, 2, 2, 0, 1, 5]))
-    s_pr = p_pr.set_palette(p_pr.init_state(6), jnp.asarray([2, 2, 2, 0, 1, 5]))
-    for _ in range(2):
-        chunk = jnp.asarray(
-            rng.standard_normal((6, p_bw.chunk_size, 2)).astype(np.float32) * 0.2
-        )
-        s_bw, out_bw = p_bw.push(s_bw, chunk)
-        s_pr, out_pr = p_pr.push(s_pr, chunk)
-        np.testing.assert_array_equal(np.asarray(out_bw), np.asarray(out_pr))
-    np.testing.assert_array_equal(
-        np.asarray(p_bw.render_viewport(s_bw)),
-        np.asarray(p_pr.render_viewport(s_pr)),
-    )
-
-
-def test_tsplit_framing_matches_planar(rng, tmp_path):
-    """framing='tsplit' (round-4-late split-state k=1 path) must emit the same
-    packed bytes as the planar fused path (<= 1 u8 from the stage-1
-    re-association is NOT acceptable here: the colormap quantizes, and on
-    these magnitudes the 1-ulp STFT deltas vanish below the LUT step —
-    require exact), keep the transposed carry faithful, and checkpoint
-    across formats."""
-    import spectrogram_tpu.ops.pallas.colormap_kernel as ck
-    import spectrogram_tpu.ops.pallas.stft_kernel as sk
-    from spectrogram_tpu.config import SpectrogramConfig
-    from spectrogram_tpu.utils import checkpoint
-
-    cfg = SpectrogramConfig(sample_rate=48000.0,
-                            window_period=2048 / 48000.0,
-                            hop_period=800 / 48000.0,
-                            viewport_rows=8, viewport_height=128)
-    orig_cb, orig_cband = ck.colormap_planes_builtin, ck.colormap_planes_banded
-    orig_sk, orig_ts = sk.stft_mag_fused2, sk.stft_mag_fused2_tsplit
-    ck.colormap_planes_builtin = lambda *a, **kw: orig_cb(*a, **{**kw, "interpret": True})
-    ck.colormap_planes_banded = lambda *a, **kw: orig_cband(*a, **{**kw, "interpret": True})
-    sk.stft_mag_fused2 = lambda *a, **kw: orig_sk(*a, **{**kw, "interpret": True})
-    sk.stft_mag_fused2_tsplit = lambda *a, **kw: orig_ts(*a, **{**kw, "interpret": True})
-    try:
-        p_pl = SpectrogramPipeline(cfg, chunk_hops=1, packed_output=True,
-                                   stft_backend="pallas", store_ring=False)
-        p_ts = SpectrogramPipeline(cfg, chunk_hops=1, packed_output=True,
-                                   stft_backend="pallas", store_ring=False,
-                                   framing="tsplit")
-        assert p_ts.tsplit_framing and not p_pl.tsplit_framing
-        assert p_ts.carry_is_transposed
-        s_pl = p_pl.init_state(2, palette_id=0)
-        s_ts = p_ts.init_state(2, palette_id=0)
-        assert s_ts.carry.ndim == 4
-        maxdiff = 0
-        for _ in range(3):
-            chunk = jnp.asarray(
-                rng.standard_normal((2, p_pl.chunk_size, 2)).astype(np.float32) * 0.2
-            )
-            s_pl, out_pl = p_pl.push(s_pl, chunk)
-            s_ts, out_ts = p_ts.push(s_ts, chunk)
-            a = np.asarray(out_pl).view(np.uint8)
-            b = np.asarray(out_ts).view(np.uint8)
-            maxdiff = max(maxdiff, int(np.abs(a.astype(int) - b.astype(int)).max()))
-        assert maxdiff <= 1, maxdiff  # colormap quantization of <=1-ulp mags
-        # carry faithful across formats
-        re_pl = np.asarray(s_ts.carry).swapaxes(2, 3).reshape(2, 2, -1)
-        np.testing.assert_array_equal(re_pl, np.asarray(s_pl.carry))
-        # checkpoint migration planar <-> tsplit
-        checkpoint.save_state(tmp_path / "pl", s_pl, cfg, p_pl)
-        restored = checkpoint.load_state(tmp_path / "pl", p_ts)
-        np.testing.assert_array_equal(
-            np.asarray(restored.carry), np.asarray(s_ts.carry))
-        # gate: unsupported geometry refuses loudly
-        import pytest
-        with pytest.raises(ValueError):
-            SpectrogramPipeline(cfg, chunk_hops=2, stft_backend="pallas",
-                                framing="tsplit")
-    finally:
-        ck.colormap_planes_builtin = orig_cb
-        ck.colormap_planes_banded = orig_cband
-        sk.stft_mag_fused2 = orig_sk
-        sk.stft_mag_fused2_tsplit = orig_ts
-
-
-def test_stream_blocked_push_matches_flat(rng):
-    """Explicit stream_blocks splits the push into unrolled sub-pushes
-    that must be bitwise-identical to the flat push (exp_blocked_push:
-    the production auto policy engages at >= 12,288 streams on hardware;
-    here a tiny explicit block size exercises the same slicing/reassembly,
-    including an uneven tail block), with state advanced identically."""
-    S, BS = 7, 3  # 3 blocks: 3 + 3 + 1 (uneven tail)
-    p_flat = make_pipeline(store_ring=True)
-    p_blk = make_pipeline(store_ring=True, stream_blocks=BS)
-    assert p_blk._push_block_streams(S) == BS
-    assert p_flat._push_block_streams(S) == 0
-    s_f = p_flat.set_palette(p_flat.init_state(S),
-                             jnp.arange(S, dtype=jnp.int32) % 5)
-    s_b = p_blk.set_palette(p_blk.init_state(S),
-                            jnp.arange(S, dtype=jnp.int32) % 5)
-    for _ in range(3):
-        chunk = jnp.asarray(
-            rng.standard_normal((S, p_flat.chunk_size, 2)).astype(np.float32)
-        )
-        s_f, out_f = p_flat.push(s_f, chunk)
-        s_b, out_b = p_blk.push(s_b, chunk)
-        np.testing.assert_array_equal(np.asarray(out_f), np.asarray(out_b))
-    np.testing.assert_array_equal(np.asarray(s_f.carry), np.asarray(s_b.carry))
-    np.testing.assert_array_equal(
-        np.asarray(s_f.ring, dtype=np.float32),
-        np.asarray(s_b.ring, dtype=np.float32),
-    )
-    assert int(s_f.cursor) == int(s_b.cursor)
-    assert int(s_f.row_count) == int(s_b.row_count)
-    # viewport render sees the reassembled state transparently
-    np.testing.assert_array_equal(
-        np.asarray(p_flat.render_viewport(s_f)),
-        np.asarray(p_blk.render_viewport(s_b)),
-    )
-
-
-def test_stream_blocks_auto_policy():
-    """Auto blocking engages only on the measured-win config: k=1 fused
-    streaming at >= 12,288 streams; everything else stays flat."""
-    import jax
-
-    p = make_pipeline(store_ring=False)  # chunk_hops=4 -> k>1: flat
-    assert p._push_block_streams(20480) == 0
-    p1 = SpectrogramPipeline(CFG, chunk_hops=1, store_ring=False)
-    expect = (SpectrogramPipeline._STREAM_BLOCK_SIZE
-              if p1.fused_chain else 0)  # fused only on TPU backends
-    assert p1._push_block_streams(16384) == expect
-    assert p1._push_block_streams(10240) == 0  # measured: flat wins at 10k
-    p_ring = SpectrogramPipeline(CFG, chunk_hops=1, store_ring=True)
-    assert p_ring._push_block_streams(16384) == 0  # ring concat unmeasured
-    p_off = SpectrogramPipeline(CFG, chunk_hops=1, store_ring=False,
-                                stream_blocks=0)
-    assert p_off._push_block_streams(16384) == 0
-
-
-def test_blockwise_auto_policy_markers(rng):
-    """blockwise_palettes="auto" (the default): the marker (a zero-size
-    1-D tables leaf) tracks the concrete palette layout class — present
-    for clustered/all-one layouts on the pallas colormap, absent for
-    scattered, preserved for traced ids, never in uniform/static mode."""
-    import jax
-
-    p = make_pipeline(colormap_backend="pallas", kernel_interpret=True)
-    assert p.blockwise_palettes == "auto"
-    s0 = p.init_state(6)  # all one palette -> maximally clustered
-    assert p._state_blockwise(s0)
-    assert s0.tables[-1].ndim == 1 and s0.tables[-1].shape == (0,)
-    # scattered concrete ids drop the marker (3 ids in a ts >= 6 block)
-    s_sc = p.set_palette(s0, np.asarray([0, 1, 2, 3, 4, 5]))
-    assert not p._state_blockwise(s_sc)
-    assert all(t.ndim == 2 for t in s_sc.tables)
-    # clustered concrete ids (single palette everywhere) restore it
-    s_cl = p.set_palette(s_sc, np.asarray([3, 3, 3, 3, 3, 3]))
-    assert p._state_blockwise(s_cl)
-    # traced ids preserve the incoming state's decision
-    switch = jax.jit(lambda st, ids: p.set_palette(st, ids))
-    s_tr = switch(s_cl, jnp.asarray([0, 1, 2, 3, 4, 5]))
-    assert p._state_blockwise(s_tr)  # kept (was blockwise)
-    s_tr2 = switch(s_sc, jnp.asarray([3, 3, 3, 3, 3, 3]))
-    assert not p._state_blockwise(s_tr2)  # kept (was per-row)
-    # scalar set_palette -> uniform kernel mode, no marker
-    s_u = p.set_palette(s0, 2)
-    assert s_u.tables[0].shape[0] == 1 and not p._state_blockwise(s_u)
-    # forced modes ignore layouts
-    p_on = make_pipeline(colormap_backend="pallas", kernel_interpret=True,
-                         blockwise_palettes=True)
-    assert p_on._state_blockwise(p_on.init_state(4)._replace(tables=()))
-    p_off = make_pipeline(blockwise_palettes=False)
-    assert not p_off._state_blockwise(p_off.init_state(4))
-
-
-def test_blockwise_auto_matches_forced_off(rng):
-    """Clustered-layout pushes under auto (blockwise kernel) are bitwise
-    equal to blockwise_palettes=False (per-row kernel), streaming state
-    included."""
-    kw = dict(chunk_hops=4, packed_output=True, stft_backend="pallas",
-              colormap_backend="pallas", kernel_interpret=True)
-    p_auto = SpectrogramPipeline(CFG, **kw)
-    p_off = SpectrogramPipeline(CFG, blockwise_palettes=False, **kw)
-    # at tiny S one colormap row block spans the whole batch (ts > S*k),
-    # so "clustered" means all-one-palette — set via a per-stream ARRAY so
-    # both pipelines stay on per-stream tables (scalar would go uniform)
-    ids = np.asarray([5, 5, 5, 5, 5, 5], np.int32)
-    s_a = p_auto.set_palette(p_auto.init_state(6), ids)
-    s_o = p_off.set_palette(p_off.init_state(6), ids)
-    assert p_auto._state_blockwise(s_a) and not p_off._state_blockwise(s_o)
-    for _ in range(2):
-        chunk = jnp.asarray(
-            rng.standard_normal((6, p_auto.chunk_size, 2)).astype(np.float32)
-        )
-        s_a, out_a = p_auto.push(s_a, chunk)
-        s_o, out_o = p_off.push(s_o, chunk)
-        np.testing.assert_array_equal(np.asarray(out_a), np.asarray(out_o))
-    np.testing.assert_array_equal(
-        np.asarray(p_auto.render_viewport(s_a)),
-        np.asarray(p_off.render_viewport(s_o)),
-    )
-
-
-def test_blockwise_marker_checkpoint_roundtrip(rng, tmp_path):
-    """npz save/load keeps the blockwise-auto layout class: the marker is
-    re-decided from the restored concrete ids and the init_state shape
-    contract tolerates both layout classes."""
-    from spectrogram_tpu.utils.checkpoint import load_state, save_state
-
-    p = make_pipeline(store_ring=True, stft_backend="pallas",
-                      colormap_backend="pallas", kernel_interpret=True)
-    s = p.set_palette(p.init_state(4), np.asarray([1, 1, 1, 1]))
-    chunk = jnp.asarray(
-        rng.standard_normal((4, p.chunk_size, 2)).astype(np.float32))
-    s, _ = p.push(s, chunk)
-    marked = p._state_blockwise(s)
-    save_state(tmp_path / "ck.npz", s, p.cfg, pipeline=p)
-    r = load_state(tmp_path / "ck.npz", p)
-    assert p._state_blockwise(r) == marked
-    # a scattered layout round-trips to the per-row class
-    s2 = p.set_palette(s, np.asarray([0, 1, 2, 3]))
-    save_state(tmp_path / "ck2.npz", s2, p.cfg, pipeline=p)
-    r2 = load_state(tmp_path / "ck2.npz", p)
-    assert not p._state_blockwise(r2)
-    s2p, o2p = p.push(s2, chunk)
-    r2p, o2r = p.push(r2, chunk)
-    np.testing.assert_array_equal(np.asarray(o2p), np.asarray(o2r))
-
-
-def test_palette_sort_matches_per_row(rng):
-    """palette_sort=True on a scattered concrete layout: the state carries
-    (t_sorted, perm, inv), pushes permute the magnitude planes through the
-    blockwise kernel and unpermute the packed rows — bitwise equal to the
-    plain per-row path, state and viewport included."""
-    kw = dict(chunk_hops=1, packed_output=True, stft_backend="pallas",
-              colormap_backend="pallas", kernel_interpret=True,
-              store_ring=True, viewport_rows=4)
-    S = 256  # two ts=128 colormap blocks after sorting
-    ids = (np.arange(S) % 2).astype(np.int32)  # alternating
-    p_ps = SpectrogramPipeline(CFG, palette_sort=True, **kw)
-    p_pr = SpectrogramPipeline(CFG, palette_sort=False, **kw)
-    s_ps = p_ps.set_palette(p_ps.init_state(S), ids)
-    s_pr = p_pr.set_palette(p_pr.init_state(S), ids)
-    assert p_ps._state_perm(s_ps) is not None
-    assert p_ps._state_blockwise(s_ps)
-    assert p_pr._state_perm(s_pr) is None
-    for _ in range(2):
-        chunk = jnp.asarray(
-            rng.standard_normal((S, p_ps.chunk_size, 2)).astype(np.float32)
-            * 0.2
-        )
-        s_ps, o_ps = p_ps.push(s_ps, chunk)
-        s_pr, o_pr = p_pr.push(s_pr, chunk)
-        np.testing.assert_array_equal(np.asarray(o_ps), np.asarray(o_pr))
-    np.testing.assert_array_equal(
-        np.asarray(s_ps.carry), np.asarray(s_pr.carry)
-    )
-    # the ring stays external-order; the viewport re-picks unsorted tables
-    np.testing.assert_array_equal(
-        np.asarray(p_ps.render_viewport(s_ps)),
-        np.asarray(p_pr.render_viewport(s_pr)),
-    )
-    # traced set_palette preserves the sorted class (old perm, new tables)
-    import jax
-
-    ids2 = ((np.arange(S) + 1) % 2).astype(np.int32)
-    s_tr = jax.jit(lambda st, i: p_ps.set_palette(st, i))(s_ps, ids2)
-    assert p_ps._state_perm(s_tr) is not None
-    s_pr2 = p_pr.set_palette(s_pr, ids2)
-    chunk = jnp.asarray(
-        rng.standard_normal((S, p_ps.chunk_size, 2)).astype(np.float32) * 0.2
-    )
-    _, o_tr = p_ps.push(s_tr, chunk)
-    _, o_pr2 = p_pr.push(s_pr2, chunk)
-    np.testing.assert_array_equal(np.asarray(o_tr), np.asarray(o_pr2))
-    # scalar set_palette drops to uniform mode (no perm)
-    s_u = p_ps.set_palette(s_ps, 2)
-    assert p_ps._state_perm(s_u) is None and s_u.tables[0].shape[0] == 1
-
-
-def test_palette_sort_policy_gates(rng):
-    """The sort engages only where it pays: concrete scattered layouts whose
-    SORTED form passes the blockwise economics; clustered layouts keep the
-    marker path; ineligible pipelines and too-many-distinct-palette layouts
-    stay unsorted."""
-    kw = dict(chunk_hops=1, packed_output=True, stft_backend="pallas",
-              colormap_backend="pallas", kernel_interpret=True,
-              store_ring=False)
-    S = 256
-    p = SpectrogramPipeline(CFG, palette_sort=True, **kw)
-    # clustered input: marker, not sort (no gathers for already-good layouts)
-    s_cl = p.set_palette(
-        p.init_state(S),
-        jnp.asarray((np.arange(S) // 128).astype(np.int32)),
-    )
-    assert p._state_perm(s_cl) is None and p._state_blockwise(s_cl)
-    # scattered with as many palettes as streams in a block: sorted layout
-    # still fails the >=50% uniform-block economics -> refuse to sort
-    wild = jnp.asarray((np.arange(S) % len(p.schemes)).astype(np.int32))
-    s_wild = p.set_palette(p.init_state(S), wild)
-    assert p._state_perm(s_wild) is None
-    # palette_sort=False pipelines never sort (the default is ON)
-    p_off = SpectrogramPipeline(CFG, palette_sort=False, **kw)
-    s_off = p_off.set_palette(
-        p_off.init_state(S), jnp.asarray((np.arange(S) % 2).astype(np.int32))
-    )
-    assert p_off._state_perm(s_off) is None
-
-
-def test_palette_sort_blocked_uneven_tail(rng):
-    """palette_sort composes with stream-blocked pushes: the stored perm is
-    BLOCK-relative (sort blocks = the push's stream blocks, uneven tail
-    included), so the blocked slicing leaves every sub-push self-consistent.
-    Bitwise vs the flat per-row pipeline."""
-    kw = dict(chunk_hops=4, packed_output=True, stft_backend="pallas",
-              colormap_backend="pallas", kernel_interpret=True,
-              store_ring=False)
-    S, BS = 600, 256  # blocks 256 + 256 + 88
-    ids = (np.arange(S) % 2).astype(np.int32)
-    p_ps = SpectrogramPipeline(CFG, palette_sort=True, stream_blocks=BS,
-                               **kw)
-    p_pr = SpectrogramPipeline(CFG, palette_sort=False, **kw)
-    s_ps = p_ps.set_palette(p_ps.init_state(S), ids)
-    s_pr = p_pr.set_palette(p_pr.init_state(S), ids)
-    assert p_ps._state_perm(s_ps) is not None
-    perm = np.asarray(s_ps.tables[1])
-    assert perm.shape == (S,)
-    # block-relative: every entry indexes within its own block
-    assert perm[:256].max() < 256 and perm[512:].max() < 88
-    chunk = jnp.asarray(
-        rng.standard_normal((S, p_ps.chunk_size, 2)).astype(np.float32) * 0.2
-    )
-    s_ps, o_ps = p_ps.push(s_ps, chunk)
-    s_pr, o_pr = p_pr.push(s_pr, chunk)
-    np.testing.assert_array_equal(np.asarray(o_ps), np.asarray(o_pr))
-    # store_ring=False -> carry-sort mode: the carry is at rest in sorted
-    # order; compare through the stored (block-relative) inverse
-    assert p_ps.carry_sort_mode
-    ginv = np.asarray(p_ps._global_perm(s_ps.tables[2], S))
-    np.testing.assert_array_equal(
-        np.asarray(s_ps.carry)[ginv], np.asarray(s_pr.carry)
-    )
-
-
-def test_palette_sort_carry_mode_transitions(rng):
-    """Sorted-carry mode (store_ring=False): set_palette keeps the carry's
-    order consistent with the tables across every transition — external ->
-    sorted, sorted -> re-sorted (new layout), sorted -> uniform (back to
-    external) — with pushes bitwise vs the per-row pipeline throughout."""
-    kw = dict(chunk_hops=1, packed_output=True, stft_backend="pallas",
-              colormap_backend="pallas", kernel_interpret=True,
-              store_ring=False)
-    S = 256
-    p_ps = SpectrogramPipeline(CFG, palette_sort=True, **kw)
-    p_pr = SpectrogramPipeline(CFG, palette_sort=False,
-                               blockwise_palettes=False, **kw)
-    assert p_ps.carry_sort_mode
-    ids_a = (np.arange(S) % 2).astype(np.int32)
-    ids_b = ((np.arange(S) // 2) % 2).astype(np.int32)  # different scatter
-
-    def step(s_ps, s_pr):
-        chunk = jnp.asarray(
-            rng.standard_normal((S, p_ps.chunk_size, 2)).astype(np.float32)
-            * 0.2
-        )
-        s_ps, o_ps = p_ps.push(s_ps, chunk)
-        s_pr, o_pr = p_pr.push(s_pr, chunk)
-        np.testing.assert_array_equal(np.asarray(o_ps), np.asarray(o_pr))
-        return s_ps, s_pr
-
-    s_ps = p_ps.set_palette(p_ps.init_state(S), ids_a)  # external -> sorted
-    s_pr = p_pr.set_palette(p_pr.init_state(S), ids_a)
-    assert p_ps._state_perm(s_ps) is not None
-    s_ps, s_pr = step(s_ps, s_pr)
-    s_ps = p_ps.set_palette(s_ps, ids_b)  # sorted -> re-sorted
-    s_pr = p_pr.set_palette(s_pr, ids_b)
-    assert p_ps._state_perm(s_ps) is not None
-    s_ps, s_pr = step(s_ps, s_pr)
-    s_ps = p_ps.set_palette(s_ps, 3)  # sorted -> uniform: carry external
-    s_pr = p_pr.set_palette(s_pr, np.full(S, 3, np.int32))
-    assert p_ps._state_perm(s_ps) is None
-    np.testing.assert_array_equal(
-        np.asarray(s_ps.carry), np.asarray(s_pr.carry)
-    )
-    s_ps, s_pr = step(s_ps, s_pr)
-
-
-def test_palette_sort_checkpoint_roundtrip(rng, tmp_path):
-    """npz save/load re-derives the sorted tuple from the persisted concrete
-    ids (same stable argsort) — the layout class and the pushed bytes
-    survive the cycle."""
-    from spectrogram_tpu.utils.checkpoint import load_state, save_state
-
-    kw = dict(chunk_hops=1, packed_output=True, stft_backend="pallas",
-              colormap_backend="pallas", kernel_interpret=True,
-              store_ring=True, viewport_rows=4)
-    S = 256
-    p = SpectrogramPipeline(CFG, palette_sort=True, **kw)
-    s = p.set_palette(
-        p.init_state(S), jnp.asarray((np.arange(S) % 2).astype(np.int32))
-    )
-    chunk = jnp.asarray(
-        rng.standard_normal((S, p.chunk_size, 2)).astype(np.float32) * 0.2
-    )
-    s, _ = p.push(s, chunk)
-    assert p._state_perm(s) is not None
-    save_state(tmp_path / "ck.npz", s, p.cfg, pipeline=p)
-    r = load_state(tmp_path / "ck.npz", p)
-    assert p._state_perm(r) is not None
-    s2, o_s = p.push(s, chunk)
-    r2, o_r = p.push(r, chunk)
-    np.testing.assert_array_equal(np.asarray(o_s), np.asarray(o_r))
-
-
-def test_palette_sort_carry_mode_checkpoint(rng, tmp_path):
-    """Carry-mode checkpoints persist the EXTERNAL carry order: a sorted
-    streaming state round-trips through npz into (a) the same carry-sort
-    pipeline and (b) a plain per-row pipeline, pushing identical bytes."""
-    from spectrogram_tpu.utils.checkpoint import load_state, save_state
-
-    kw = dict(chunk_hops=1, packed_output=True, stft_backend="pallas",
-              colormap_backend="pallas", kernel_interpret=True,
-              store_ring=False)
-    S = 256
-    p = SpectrogramPipeline(CFG, palette_sort=True, **kw)
-    p_pr = SpectrogramPipeline(CFG, palette_sort=False,
-                               blockwise_palettes=False, **kw)
-    s = p.set_palette(
-        p.init_state(S), (np.arange(S) % 2).astype(np.int32)
-    )
-    chunk = jnp.asarray(
-        rng.standard_normal((S, p.chunk_size, 2)).astype(np.float32) * 0.2
-    )
-    s, _ = p.push(s, chunk)
-    assert p._state_perm(s) is not None and p.carry_sort_mode
+def test_palette_ids_validate_on_host_and_clamp_on_device(rng):
+    """Host ids outside the registry raise; device ids clamp to it (the
+    reference's GL sampler clamps), so an id past the end renders like the
+    last palette instead of garbage."""
     import pytest
 
-    with pytest.raises(ValueError, match="palette-sorted"):
-        save_state(tmp_path / "nope.npz", s, p.cfg)  # pipeline required
-    save_state(tmp_path / "ck.npz", s, p.cfg, pipeline=p)
-    r = load_state(tmp_path / "ck.npz", p)
-    assert p._state_perm(r) is not None
-    s2, o_s = p.push(s, chunk)
-    r2, o_r = p.push(r, chunk)
-    np.testing.assert_array_equal(np.asarray(o_s), np.asarray(o_r))
-    # restore into a per-row pipeline: external carry, same bytes
-    r_pr = load_state(tmp_path / "ck.npz", p_pr)
-    assert p_pr._state_perm(r_pr) is None
-    _, o_pr = p_pr.push(r_pr, chunk)
-    np.testing.assert_array_equal(np.asarray(o_s), np.asarray(o_pr))
+    p = make_pipeline(packed_output=True)
+    lim = len(p.schemes) - 1
+    with pytest.raises(ValueError, match="out of range"):
+        p.set_palette(p.init_state(2), np.asarray([0, lim + 1]))
+    with pytest.raises(ValueError, match="out of range"):
+        p.set_palette(p.init_state(2), -1)
+    chunk = rng.standard_normal((2, p.chunk_size, 2)).astype(np.float32) * 0.2
+    s_dev = p.set_palette(p.init_state(2), jnp.asarray([lim + 7, -3]))
+    s_ref = p.set_palette(p.init_state(2), np.asarray([lim, 0]))
+    _, out_dev = p.push(s_dev, jnp.asarray(chunk))
+    _, out_ref = p.push(s_ref, jnp.asarray(chunk))
+    np.testing.assert_array_equal(np.asarray(out_dev), np.asarray(out_ref))
 
 
-def test_palette_sort_sorted_output(rng):
-    """sorted_output=True: rows arrive in sorted stream order; host
-    reindexing through output_perm(state) reproduces the external-order
-    output bitwise.  Unsorted states emit external order (perm None)."""
-    kw = dict(chunk_hops=1, packed_output=True, stft_backend="pallas",
-              colormap_backend="pallas", kernel_interpret=True,
-              store_ring=False)
-    S = 256
-    ids = (np.arange(S) % 2).astype(np.int32)
-    p_so = SpectrogramPipeline(CFG, palette_sort=True, sorted_output=True,
-                               **kw)
-    p_pr = SpectrogramPipeline(CFG, palette_sort=False,
-                               blockwise_palettes=False, **kw)
-    import pytest
-
-    with pytest.raises(ValueError, match="sorted_output requires"):
-        SpectrogramPipeline(CFG, sorted_output=True, palette_sort=False,
-                            **kw)
-    s_so = p_so.set_palette(p_so.init_state(S), ids)
-    s_pr = p_pr.set_palette(p_pr.init_state(S), ids)
-    op = p_so.output_perm(s_so)
-    assert op is not None and op.shape == (S,)
-    for _ in range(2):
-        chunk = jnp.asarray(
-            rng.standard_normal((S, p_so.chunk_size, 2)).astype(np.float32)
-            * 0.2
-        )
-        s_so, o_so = p_so.push(s_so, chunk)
-        s_pr, o_pr = p_pr.push(s_pr, chunk)
-        np.testing.assert_array_equal(
-            np.asarray(o_so)[p_so.output_perm(s_so)], np.asarray(o_pr)
-        )
-    # uniform (unsorted) states: external order, no perm
-    s_u = p_so.set_palette(s_so, 1)
-    assert p_so.output_perm(s_u) is None
-    chunk = jnp.asarray(
-        rng.standard_normal((S, p_so.chunk_size, 2)).astype(np.float32) * 0.2
-    )
-    s_u, o_u = p_so.push(s_u, chunk)
-    s_pr2 = p_pr.set_palette(s_pr, np.full(S, 1, np.int32))
-    _, o_pr2 = p_pr.push(s_pr2, chunk)
-    np.testing.assert_array_equal(np.asarray(o_u), np.asarray(o_pr2))
-
-
-def test_presorted_input_parity(rng):
-    """presorted_input=True (the host-sorted drain): the host delivers the
-    chunk with rows already permuted into the carry's sorted order
-    (chunk_sorted = chunk_external[input_perm(state)]) and the device-side
-    per-push chunk gather is skipped — outputs and carries bitwise-match
-    the normal sorted pipeline.  Covers the block-relative sorted class,
-    the GLOBAL sorted class (stream blocking), and the unsorted (uniform)
-    fall-through where input_perm is None and chunks pass unpermuted.
-    input_dest inverts input_perm for the drain layer's dest parameter."""
-    import pytest
-
-    kw = dict(chunk_hops=1, packed_output=True, stft_backend="pallas",
-              colormap_backend="pallas", kernel_interpret=True,
-              store_ring=False)
-    with pytest.raises(ValueError, match="presorted_input requires"):
-        SpectrogramPipeline(CFG, presorted_input=True, palette_sort=False,
-                            **kw)
-    with pytest.raises(ValueError, match="presorted_input requires"):
-        SpectrogramPipeline(CFG, presorted_input=True, chunk_hops=1,
-                            packed_output=True, stft_backend="pallas",
-                            colormap_backend="pallas", kernel_interpret=True)
-    for S, BS in ((256, 0), (512, 128)):  # block-relative / global sorted
-        ids = (np.arange(S) % 2).astype(np.int32)
-        p = SpectrogramPipeline(CFG, stream_blocks=BS, **kw)
-        p_pi = SpectrogramPipeline(CFG, stream_blocks=BS,
-                                   presorted_input=True, **kw)
-        s = p.set_palette(p.init_state(S), ids)
-        assert (p._tables_perm_global(s.tables) == (BS > 0)), (S, BS)
-        perm = p.input_perm(s)
-        dest = p.input_dest(s)
-        assert perm is not None and perm.shape == (S,)
-        # dest inverts perm: scattering external rows to dest reproduces
-        # the gathered sorted order
-        assert (np.arange(S)[perm][dest] == np.arange(S)).all()
-        # push donates the state: give each pipeline its own (identical)
-        s_pi = p_pi.set_palette(p_pi.init_state(S), ids)
-        for _ in range(2):
-            chunk = jnp.asarray(
-                rng.standard_normal((S, p.chunk_size, 2)).astype(np.float32)
-                * 0.2
-            )
-            s, o = p.push(s, chunk)
-            s_pi, o_pi = p_pi.push(s_pi, jnp.asarray(np.asarray(chunk)[perm]))
-            np.testing.assert_array_equal(np.asarray(o), np.asarray(o_pi))
-        np.testing.assert_array_equal(
-            np.asarray(s.carry), np.asarray(s_pi.carry)
-        )
-    # unsorted (uniform) states: input_perm None, chunks pass unpermuted
-    p_pi = SpectrogramPipeline(CFG, presorted_input=True, **kw)
-    p_u = SpectrogramPipeline(CFG, **kw)
-    S = 128
-    s_u = p_pi.set_palette(p_pi.init_state(S), 2)
-    assert p_pi.input_perm(s_u) is None and p_pi.input_dest(s_u) is None
-    chunk = jnp.asarray(
-        rng.standard_normal((S, p_pi.chunk_size, 2)).astype(np.float32) * 0.2
-    )
-    _, o_a = p_pi.push(s_u, chunk)
-    _, o_b = p_u.push(p_u.set_palette(p_u.init_state(S), 2), chunk)
-    np.testing.assert_array_equal(np.asarray(o_a), np.asarray(o_b))
-
-
-def test_palette_sort_default_on_and_unsort_state(rng):
-    """palette_sort defaults ON (measured +13% at 10,240 scattered streams
-    on v5e, exp_palette_sort): a default pipeline sorts an eligible
-    scattered layout, and unsort_state returns the external-order
-    equivalent — pushes bitwise vs a palette_sort=False pipeline before
-    and after unsorting."""
-    kw = dict(chunk_hops=1, packed_output=True, stft_backend="pallas",
-              colormap_backend="pallas", kernel_interpret=True,
-              store_ring=False)
-    S = 256
-    ids = (np.arange(S) % 2).astype(np.int32)
-    p = SpectrogramPipeline(CFG, **kw)  # default: sorts
-    p_pr = SpectrogramPipeline(CFG, palette_sort=False, **kw)
-    assert p.palette_sort and p.carry_sort_mode
-    s = p.set_palette(p.init_state(S), ids)
-    s_pr = p_pr.set_palette(p_pr.init_state(S), ids)
-    assert p._state_perm(s) is not None
-    chunk = jnp.asarray(
-        rng.standard_normal((S, p.chunk_size, 2)).astype(np.float32) * 0.2
-    )
-    s, o = p.push(s, chunk)
-    s_pr, o_pr = p_pr.push(s_pr, chunk)
-    np.testing.assert_array_equal(np.asarray(o), np.asarray(o_pr))
-    # unsort: external-order carry + plain per-row tables
-    u = p.unsort_state(s)
-    assert p._state_perm(u) is None
-    np.testing.assert_array_equal(np.asarray(u.carry), np.asarray(s_pr.carry))
-    np.testing.assert_array_equal(
-        np.asarray(u.tables[0]), np.asarray(s_pr.tables[0])
-    )
-    # identity on unsorted states
-    assert p_pr.unsort_state(s_pr) is s_pr
-    # the unsorted state keeps pushing bitwise, on the DEFAULT pipeline too
-    # (unsorted per-stream states take its per-row path)
-    chunk2 = jnp.asarray(
-        rng.standard_normal((S, p.chunk_size, 2)).astype(np.float32) * 0.2
-    )
-    _, o_u = p.push(u, chunk2)
-    _, o_pr2 = p_pr.push(s_pr, chunk2)
-    np.testing.assert_array_equal(np.asarray(o_u), np.asarray(o_pr2))
-
-
-def test_palette_sort_global_blocked(rng):
-    """GLOBAL palette sort (length-4 tables tuple): when the per-block sort
-    fails the blockwise economics under stream blocking (palette runs
-    shorter than the colormap block inside each push block) but a whole-
-    state sort passes, set_palette stores a GLOBAL perm; _push_core
-    permutes the chunk once above the block slicing and unpermutes the
-    packed rows once after reassembly.  Bitwise vs the flat per-row
-    pipeline, uneven tail included."""
-    kw = dict(chunk_hops=1, packed_output=True, stft_backend="pallas",
-              colormap_backend="pallas", kernel_interpret=True,
-              store_ring=False)
-    for S, BS in ((512, 128), (576, 128)):  # even blocks / 64-stream tail
-        ids = (np.arange(S) % 2).astype(np.int32)  # alternating: per-block
-        # sorted runs are 64 < ts=128 (refuses); global runs are S/2 >= 256
-        p_ps = SpectrogramPipeline(CFG, palette_sort=True, stream_blocks=BS,
-                                   **kw)
-        p_pr = SpectrogramPipeline(CFG, palette_sort=False,
-                                   blockwise_palettes=False, **kw)
-        s_ps = p_ps.set_palette(p_ps.init_state(S), ids)
-        s_pr = p_pr.set_palette(p_pr.init_state(S), ids)
-        assert p_ps._tables_perm_global(s_ps.tables), (S, BS)
-        assert len(s_ps.tables) == 4 and s_ps.tables[3].size == 0
-        perm = np.asarray(s_ps.tables[1])
-        assert perm.shape == (S,) and perm.max() == S - 1  # global indices
-        assert p_ps._state_blockwise(s_ps)
-        for _ in range(2):
-            chunk = jnp.asarray(
-                rng.standard_normal((S, p_ps.chunk_size, 2))
-                .astype(np.float32) * 0.2
-            )
-            s_ps, o_ps = p_ps.push(s_ps, chunk)
-            s_pr, o_pr = p_pr.push(s_pr, chunk)
-            np.testing.assert_array_equal(np.asarray(o_ps), np.asarray(o_pr))
-        # carry at rest globally sorted
-        inv = np.asarray(s_ps.tables[2])
-        np.testing.assert_array_equal(
-            np.asarray(s_ps.carry)[inv], np.asarray(s_pr.carry)
-        )
-        # unsort_state: external carry + plain 1-tuple
-        u = p_ps.unsort_state(s_ps)
-        assert p_ps._state_perm(u) is None and len(u.tables) == 1
-        np.testing.assert_array_equal(
-            np.asarray(u.carry), np.asarray(s_pr.carry)
-        )
-
-
-def test_palette_sort_global_transitions(rng):
-    """Global-sorted states survive set_palette transitions: traced
-    set_palette preserves the length-4 class (old perm, new tables);
-    global -> uniform returns the carry to external order; global ->
-    block-relative re-sorts correctly.  Pushes bitwise vs per-row
-    throughout."""
-    import jax
-
-    kw = dict(chunk_hops=1, packed_output=True, stft_backend="pallas",
-              colormap_backend="pallas", kernel_interpret=True,
-              store_ring=False)
-    S, BS = 512, 256
-    # 4 palettes scattered: per-block (bs=256) sorted runs are 64 < ts=128
-    # (refuses) -> GLOBAL runs of 128 engage the length-4 class
-    ids_g = (np.arange(S) % 4).astype(np.int32)
-    # 64-runs of 2 palettes: per-block sorted runs are 128 = ts -> the
-    # BLOCK-relative sort engages (and the unsorted layout is not clustered)
-    ids_b = ((np.arange(S) // 64) % 2).astype(np.int32)
-    p_ps = SpectrogramPipeline(CFG, palette_sort=True, stream_blocks=BS, **kw)
-    p_pr = SpectrogramPipeline(CFG, palette_sort=False,
-                               blockwise_palettes=False, **kw)
-
-    def step(s_ps, s_pr):
-        chunk = jnp.asarray(
-            rng.standard_normal((S, p_ps.chunk_size, 2)).astype(np.float32)
-            * 0.2
-        )
-        s_ps, o_ps = p_ps.push(s_ps, chunk)
-        s_pr, o_pr = p_pr.push(s_pr, chunk)
-        np.testing.assert_array_equal(np.asarray(o_ps), np.asarray(o_pr))
-        return s_ps, s_pr
-
-    s_ps = p_ps.set_palette(p_ps.init_state(S), ids_g)
-    s_pr = p_pr.set_palette(p_pr.init_state(S), ids_g)
-    assert p_ps._tables_perm_global(s_ps.tables)
-    s_ps, s_pr = step(s_ps, s_pr)
-    # traced set_palette: same ids array class preserved (global 4-tuple)
-    s_tr = jax.jit(lambda st, i: p_ps.set_palette(st, i))(
-        s_ps, jnp.asarray(3 - ids_g)
-    )
-    assert p_ps._tables_perm_global(s_tr.tables)
-    s_pr_tr = p_pr.set_palette(s_pr, (3 - ids_g).astype(np.int32))
-    s_tr, s_pr_tr = step(s_tr, s_pr_tr)
-    # global -> block-relative (different layout class)
-    s_b = p_ps.set_palette(s_tr, ids_b)
-    s_pr_b = p_pr.set_palette(s_pr_tr, ids_b)
-    assert p_ps._state_perm(s_b) is not None
-    assert not p_ps._tables_perm_global(s_b.tables)
-    s_b, s_pr_b = step(s_b, s_pr_b)
-    # global/block -> uniform: carry back to external order
-    s_u = p_ps.set_palette(s_b, 3)
-    s_pr_u = p_pr.set_palette(s_pr_b, np.full(S, 3, np.int32))
-    assert p_ps._state_perm(s_u) is None
-    np.testing.assert_array_equal(
-        np.asarray(s_u.carry), np.asarray(s_pr_u.carry)
-    )
-    step(s_u, s_pr_u)
-
-
-def test_palette_sort_global_sorted_output_and_checkpoint(rng, tmp_path):
-    """Global mode composes with sorted_output (host reindex through the
-    GLOBAL inverse) and round-trips through npz checkpoints (external
-    carry order on disk; the length-4 class re-derived from the persisted
-    ids)."""
-    from spectrogram_tpu.utils.checkpoint import load_state, save_state
-
-    kw = dict(chunk_hops=1, packed_output=True, stft_backend="pallas",
-              colormap_backend="pallas", kernel_interpret=True,
-              store_ring=False)
-    S, BS = 512, 128
-    ids = (np.arange(S) % 2).astype(np.int32)
-    p_so = SpectrogramPipeline(CFG, palette_sort=True, sorted_output=True,
-                               stream_blocks=BS, **kw)
-    p = SpectrogramPipeline(CFG, palette_sort=True, stream_blocks=BS, **kw)
-    p_pr = SpectrogramPipeline(CFG, palette_sort=False,
-                               blockwise_palettes=False, **kw)
-    s_so = p_so.set_palette(p_so.init_state(S), ids)
-    s = p.set_palette(p.init_state(S), ids)
-    s_pr = p_pr.set_palette(p_pr.init_state(S), ids)
-    assert p_so._tables_perm_global(s_so.tables)
-    op = p_so.output_perm(s_so)
-    assert op is not None and op.shape == (S,)
-    chunk = jnp.asarray(
-        rng.standard_normal((S, p.chunk_size, 2)).astype(np.float32) * 0.2
-    )
-    s_so, o_so = p_so.push(s_so, chunk)
-    s, o = p.push(s, chunk)
-    s_pr, o_pr = p_pr.push(s_pr, chunk)
-    np.testing.assert_array_equal(
-        np.asarray(o_so)[p_so.output_perm(s_so)], np.asarray(o_pr)
-    )
-    np.testing.assert_array_equal(np.asarray(o), np.asarray(o_pr))
-    # checkpoint: external order on disk, class re-derived on load
-    save_state(tmp_path / "ck.npz", s, p.cfg, pipeline=p)
-    r = load_state(tmp_path / "ck.npz", p)
-    assert p._tables_perm_global(r.tables)
-    chunk2 = jnp.asarray(
-        rng.standard_normal((S, p.chunk_size, 2)).astype(np.float32) * 0.2
-    )
-    _, o_s = p.push(s, chunk2)
-    _, o_r = p.push(r, chunk2)
-    np.testing.assert_array_equal(np.asarray(o_s), np.asarray(o_r))
-    # and into a per-row pipeline: external carry, same bytes
-    r_pr = load_state(tmp_path / "ck.npz", p_pr)
-    assert p_pr._state_perm(r_pr) is None
-    _, o_pr2 = p_pr.push(r_pr, chunk2)
-    np.testing.assert_array_equal(np.asarray(o_s), np.asarray(o_pr2))
-
-
-def test_push_int16_wire_matches_f32(rng):
+@pytest.mark.parametrize("layout", ["interleaved", "planar"])
+def test_push_int16_wire_matches_f32(rng, layout):
     """int16 chunks (the half-bandwidth wire format) push EXACTLY like the
     pre-scaled f32 chunks: x/32768 is exact in f32 for every int16, and
     the scale happens on device inside the jitted push."""
@@ -1273,90 +307,14 @@ def test_push_int16_wire_matches_f32(rng):
     words = rng.integers(-32768, 32768,
                          size=(3, p.chunk_size, 2)).astype(np.int16)
     f32 = words.astype(np.float32) / 32768.0
-    s1 = p.init_state(3)
-    s1, out1 = p.push(s1, jnp.asarray(f32))
-    s2 = p.init_state(3)
-    s2, out2 = p.push(s2, jnp.asarray(words))
+    if layout == "planar":
+        push = p.push_planar
+        words = words.transpose(0, 2, 1).copy()
+        f32 = f32.transpose(0, 2, 1).copy()
+    else:
+        push = p.push
+    s1, out1 = push(p.init_state(3), jnp.asarray(f32))
+    s2, out2 = push(p.init_state(3), jnp.asarray(words))
     np.testing.assert_array_equal(np.asarray(out1), np.asarray(out2))
     np.testing.assert_array_equal(np.asarray(s1.carry), np.asarray(s2.carry))
-    # planar wire form too
-    s3 = p.init_state(3)
-    s3, out3 = p.push_planar(
-        s3, jnp.asarray(words.transpose(0, 2, 1).copy()))
-    np.testing.assert_array_equal(np.asarray(out1), np.asarray(out3))
-
-
-def test_i16_planes_bitwise(rng):
-    """i16_planes (round 5): the PCM planes stay int16 end-to-end (carry,
-    framing, kernel operands — half the bytes on the kernel's measured
-    DMA bottleneck); the kernel casts in-VMEM with the exact 2^-15 wire
-    scale folded into the Hann constant.  BITWISE equal to the f32
-    pipeline fed the same int16 chunks (which convert at the edge),
-    across carry handoffs and the sorted-carry path."""
-    import pytest
-    from spectrogram_tpu.config import BENCH_CONFIG
-
-    kw = dict(chunk_hops=1, packed_output=True, stft_backend="pallas",
-              colormap_backend="pallas", kernel_interpret=True,
-              store_ring=False)
-    with pytest.raises(ValueError, match="i16_planes requires"):
-        SpectrogramPipeline(CFG, i16_planes=True, **kw)  # no packed plan
-    S = 32
-    p16 = SpectrogramPipeline(BENCH_CONFIG, i16_planes=True, **kw)
-    pf = SpectrogramPipeline(BENCH_CONFIG, **kw)
-    assert p16.stft_packed
-    ids = (np.arange(S) % 2).astype(np.int32)
-    s16 = p16.set_palette(p16.init_state(S), ids)
-    sf = pf.set_palette(pf.init_state(S), ids)
-    assert s16.carry.dtype == jnp.int16
-    for _ in range(2):
-        chunk = jnp.asarray(rng.integers(
-            -32768, 32768, size=(S, p16.chunk_size, 2)).astype(np.int16))
-        s16, o16 = p16.push(s16, chunk)
-        sf, of = pf.push(sf, chunk)
-        np.testing.assert_array_equal(np.asarray(o16), np.asarray(of))
-    np.testing.assert_array_equal(
-        np.asarray(s16.carry).astype(np.float32) * np.float32(2.0 ** -15),
-        np.asarray(sf.carry),
-    )
-    # f32 chunks are rejected (a silent lossy cast would corrupt audio)
-    with pytest.raises(ValueError, match="int16 chunks"):
-        p16.push_impl(s16, jnp.zeros((S, p16.chunk_size, 2), jnp.float32))
-    # k>1 display mode: the allk packed kernel takes int16 planes too
-    S8 = 16
-    kw8 = dict(kw, chunk_hops=8)
-    p16k = SpectrogramPipeline(BENCH_CONFIG, i16_planes=True, **kw8)
-    pfk = SpectrogramPipeline(BENCH_CONFIG, **kw8)
-    assert p16k.allk_framing
-    s16k, sfk = p16k.init_state(S8), pfk.init_state(S8)
-    for _ in range(2):
-        chunk = jnp.asarray(rng.integers(
-            -32768, 32768, size=(S8, p16k.chunk_size, 2)).astype(np.int16))
-        s16k, o16k = p16k.push(s16k, chunk)
-        sfk, ofk = pfk.push(sfk, chunk)
-        np.testing.assert_array_equal(np.asarray(o16k), np.asarray(ofk))
-
-
-def test_i16_planes_checkpoint_roundtrip(rng, tmp_path):
-    """int16-plane states (i16 carry) survive an npz checkpoint cycle:
-    dtype preserved, post-restore pushes bitwise."""
-    from spectrogram_tpu.config import BENCH_CONFIG
-    from spectrogram_tpu.utils.checkpoint import load_state, save_state
-
-    kw = dict(chunk_hops=1, packed_output=True, stft_backend="pallas",
-              colormap_backend="pallas", kernel_interpret=True,
-              store_ring=False)
-    p = SpectrogramPipeline(BENCH_CONFIG, i16_planes=True, **kw)
-    S = 16
-    st = p.init_state(S)
-    ch = jnp.asarray(rng.integers(
-        -32768, 32768, size=(S, p.chunk_size, 2)).astype(np.int16))
-    st, _ = p.push(st, ch)
-    save_state(tmp_path / "ck.npz", st, p.cfg, pipeline=p)
-    r = load_state(tmp_path / "ck.npz", p)
-    assert r.carry.dtype == jnp.int16
-    ch2 = jnp.asarray(rng.integers(
-        -32768, 32768, size=(S, p.chunk_size, 2)).astype(np.int16))
-    _, a = p.push(st, ch2)
-    _, b = p.push(r, ch2)
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert s2.carry.dtype == jnp.float32

@@ -255,45 +255,34 @@ def test_bank16_pop_planar_i16_raw():
         b.pop_matrix_i16_planar(4, out=np.zeros((2, 2, 4), np.float32))
 
 
-def test_pop_dest_permutation(ring_impl):
-    """Destination-permuted drains (the host-sorted chunk order for
-    presorted_input pipelines): stream s's frames land in output row
-    dest[s], counts stay indexed by source stream, and the result equals
-    the identity drain scattered through dest.  Non-permutations are
-    rejected (two streams on one row would race in the native copy)."""
+def test_pop_planar_matches_interleaved(ring_impl):
+    """The planar drain is the interleaved drain transposed per stream: an
+    underrunning stream zero-pads its own row and counts by stream."""
     S, n = 5, 4
-    dest = np.array([3, 0, 4, 1, 2], np.uint64)
+
+    def fill(b):
+        for s in range(4):
+            b.push(s, frames(n, start=100 * s))
+        b.push(4, frames(1, start=400))
+
     b = ring_mod.RingBank(S, 32)
-    for s in range(S):
-        b.push(s, frames(n, start=100 * s))
-    plain = np.empty((S, n, 2), np.float32)
-    for s in range(S):
-        plain[s] = frames(n, start=100 * s)
-    out, counts = b.pop_matrix(n, dest=dest)
-    np.testing.assert_array_equal(counts, [n] * S)
-    np.testing.assert_array_equal(out[dest], plain)
-    # planar variant; stream 4 underruns -> its DEST row zero-pads
-    for s in range(4):
-        b.push(s, frames(n, start=100 * s))
-    b.push(4, frames(1, start=400))
-    outp, counts = b.pop_matrix_planar(n, dest=dest)
-    np.testing.assert_array_equal(counts, [n, n, n, n, 1])
-    for s in range(4):
-        np.testing.assert_array_equal(outp[int(dest[s])].T, plain[s])
-    np.testing.assert_array_equal(outp[int(dest[4])][:, 1:], 0)
-    with pytest.raises(ValueError, match="permutation"):
-        b.pop_matrix(n, dest=np.array([0, 0, 1, 2, 3], np.uint64))
-    with pytest.raises(ValueError, match=r"\[5\]"):
-        b.pop_matrix(n, dest=np.arange(4, dtype=np.uint64))
+    fill(b)
+    inter, counts_i = b.pop_matrix(n)
+    fill(b)
+    planar, counts_p = b.pop_matrix_planar(n)
+    np.testing.assert_array_equal(counts_i, [n, n, n, n, 1])
+    np.testing.assert_array_equal(counts_p, counts_i)
+    np.testing.assert_array_equal(planar, inter.transpose(0, 2, 1))
+    np.testing.assert_array_equal(inter[4, 1:], 0)
+    np.testing.assert_array_equal(inter[2], frames(n, start=200))
 
 
-def test_bank16_pop_dest_permutation():
-    """int16 bank permuted drains: all three pop formats scatter through
-    dest identically to their identity form."""
+def test_bank16_pop_formats_agree():
+    """int16 bank drains: the f32 planar drain is the raw int16 planar drain
+    scaled by 1/32768, and the f32 interleaved drain is its transpose."""
     if not ring_mod.native_available():
         pytest.skip("native ring library unavailable")
     S, n = 4, 3
-    dest = np.array([2, 3, 0, 1], np.uint64)
     pcm = [(np.arange(2 * n, dtype=np.int16).reshape(n, 2) + 10 * s)
            for s in range(S)]
 
@@ -303,16 +292,15 @@ def test_bank16_pop_dest_permutation():
 
     b = ring_mod.RingBank16(S, 16)
     fill(b)
-    raw, counts = b.pop_matrix_i16_planar(n, dest=dest)
+    raw, counts = b.pop_matrix_i16_planar(n)
     np.testing.assert_array_equal(counts, [n] * S)
     for s in range(S):
-        np.testing.assert_array_equal(raw[int(dest[s])].T, pcm[s])
+        np.testing.assert_array_equal(raw[s].T, pcm[s])
     fill(b)
-    f32p, _ = b.pop_matrix_f32_planar(n, dest=dest)
+    f32p, _ = b.pop_matrix_f32_planar(n)
     np.testing.assert_array_equal(
         f32p, raw.astype(np.float32) * np.float32(1.0 / 32768.0)
     )
     fill(b)
-    f32i, _ = b.pop_matrix_f32(n, dest=dest)
-    for s in range(S):
-        np.testing.assert_array_equal(f32i[int(dest[s])], f32p[int(dest[s])].T)
+    f32i, _ = b.pop_matrix_f32(n)
+    np.testing.assert_array_equal(f32i, f32p.transpose(0, 2, 1))

@@ -235,3 +235,23 @@ def test_checkpoint_sidecar_defeats_lucky_cursor(tmp_path, rng):
         ck.load_state(tmp_path / "c", p4)
     # same-pipeline restore still works
     assert int(ck.load_state(tmp_path / "c", p8).cursor) == 8
+
+
+@pytest.mark.parametrize("layout", ["transposed", "int16"])
+def test_checkpoint_refuses_removed_carry_formats(tmp_path, layout):
+    """Checkpoints whose carry used a sample-plane format that no longer
+    exists (the [S, 2, n1, C/n1] transposed carry, int16 planes) fail with
+    a clear message instead of loading garbage."""
+    cfg = SpectrogramConfig(sample_rate=8000.0, window_period=0.032)
+    p = SpectrogramPipeline(cfg, chunk_hops=4, viewport_rows=16)
+    s = p.init_state(2)
+    checkpoint.save_state(tmp_path / "c", s, cfg, pipeline=p)
+    z = dict(np.load(tmp_path / "c.npz"))
+    c = z["carry"]
+    if layout == "transposed":
+        z["carry"] = c[..., None]  # a 4-D [S, 2, n1, C/n1] carry
+    else:
+        z["carry"] = c.astype(np.int16)
+    np.savez_compressed(tmp_path / "c.npz", **z)
+    with pytest.raises(ValueError, match="no longer reads"):
+        checkpoint.load_state(tmp_path / "c", p)

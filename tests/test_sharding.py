@@ -103,205 +103,57 @@ def test_sharded_push_packed_output(pipeline, rng):
     assert packed2.shape == packed.shape and int(rows) == 8 * p.chunk_hops
 
 
-def test_fused_pallas_chain_under_shard_map(rng):
-    """VERDICT r1 weak-3: the production (fused Pallas) backend must run
-    under shard_map — interpret mode on the CPU mesh — and match the
-    unsharded fused push exactly (catches _push_fused-specific layout or
-    k>1 remap bugs interacting with stream sharding)."""
-    fused = SpectrogramPipeline(
-        CFG, chunk_hops=4, packed_output=True,
-        stft_backend="pallas", colormap_backend="pallas",
-        kernel_interpret=True,
-    )
+def test_shard_map_matches_unsharded_with_per_stream_palettes(rng):
+    """shard_map over the 8-device mesh must match the unsharded push
+    exactly, rows and ring, with a different palette on every stream (the
+    palette ids shard with the streams)."""
+    p = SpectrogramPipeline(CFG, chunk_hops=4, packed_output=True)
     m = pmesh.make_mesh()
     n_streams = 16
+    ids = (np.arange(n_streams) * 5) % len(p.schemes)
     pcm = rng.standard_normal(
-        (n_streams, fused.chunk_size, 2)
+        (n_streams, p.chunk_size, 2)
     ).astype(np.float32) * 0.3
 
-    s0 = fused.init_state(n_streams)
-    s0, ref = jax.jit(fused.push_impl)(s0, jnp.asarray(pcm))
+    s0 = p.set_palette(p.init_state(n_streams), ids)
+    s0, ref = jax.jit(p.push_impl)(s0, jnp.asarray(pcm))
 
-    step = pmesh.shard_map_step(fused, m)
-    st = pmesh.sharded_init(fused, n_streams, m)
+    step = pmesh.shard_map_step(p, m)
+    st = pmesh.shard_state(p.set_palette(p.init_state(n_streams), ids), m)
     chunk = jax.device_put(jnp.asarray(pcm), pmesh.chunk_sharding(m))
     st, packed, global_rows = step(st, chunk)
     assert int(global_rows) == n_streams * 4
     np.testing.assert_array_equal(np.asarray(packed), np.asarray(ref))
-    # ring contents survived the sharded update identically
     np.testing.assert_array_equal(
         np.asarray(st.ring.astype(jnp.float32)),
         np.asarray(s0.ring.astype(jnp.float32)),
     )
 
 
-def test_shard_state_unsorts_palette_sorted_states(rng):
-    """palette_sort (default ON) stores a block-relative permutation that
-    cannot cross shard slices: shard_state raises without the pipeline,
-    de-sorts with it, and the sharded push matches the single-device
-    sorted push bitwise.  The per-shard re-sort (round 4 final) is
-    economics-gated: at 32-stream shards the sorted runs are far below
-    the colormap block, so this state stays UNSORTED on the mesh (the
-    passing case is test_shard_state_resorts_per_shard)."""
-    m = pmesh.make_mesh()
-    p = SpectrogramPipeline(CFG, chunk_hops=1, store_ring=False,
-                            packed_output=True, stft_backend="pallas",
-                            colormap_backend="pallas", kernel_interpret=True)
-    S = 256  # 32 streams/device; alternating ids sort into ts-size runs
-    ids = (np.arange(S) % 2).astype(np.int32)
-    s = p.set_palette(p.init_state(S), ids)
-    assert p._state_perm(s) is not None
-    with pytest.raises(ValueError, match="palette-sorted"):
-        pmesh.shard_state(s, m)
-    sh = pmesh.shard_state(s, m, p)
-    pcm = rng.standard_normal((S, p.chunk_size, 2)).astype(np.float32) * 0.2
-    # non-donating reference push: device_put may alias replicated leaves
-    # between s and sh, and a donated s would tear sh down with it
-    _, rgba_ref = jax.jit(p.push_impl)(s, jnp.asarray(pcm))
-    assert p._state_perm(sh) is None
-    # the unsorted scattered layout has no blockwise marker — derive the
-    # table shardings from the concrete state, not the init-state class
-    step = pmesh.sharded_push(p, m, state=sh)
-    chunk = jax.device_put(jnp.asarray(pcm), pmesh.chunk_sharding(m))
-    sh1, rgba = step(sh, chunk)
-    np.testing.assert_array_equal(np.asarray(rgba), np.asarray(rgba_ref))
-    # set_palette on the sharded state: the per-shard sort re-checks the
-    # economics (32-stream shards still refuse) — stays unsorted
-    sh2 = p.set_palette(sh1, jnp.asarray(ids))
-    assert p._state_perm(sh2) is None
-
-
-def test_shard_state_resorts_per_shard(rng):
-    """PER-SHARD palette sort (round 4 final): shard_state(state, mesh,
-    pipeline) re-sorts an eligible scattered layout with one argsort per
-    shard slice (length-4 tables tuple, perm values global-but-confined),
-    so every device keeps the blockwise colormap under shard_map AND the
-    GSPMD jit — both bitwise vs the single-process per-row push."""
-    m = pmesh.make_mesh(n_devices=2)
-    kw = dict(chunk_hops=1, store_ring=False, packed_output=True,
-              stft_backend="pallas", colormap_backend="pallas",
-              kernel_interpret=True)
-    p = SpectrogramPipeline(CFG, **kw)
-    p_pr = SpectrogramPipeline(CFG, palette_sort=False,
-                               blockwise_palettes=False, **kw)
-    S = 512  # 256/shard; alternating ids -> 128-run shard-sorted slices
-    ids = (np.arange(S) % 2).astype(np.int32)
-    pcm = rng.standard_normal((S, p.chunk_size, 2)).astype(np.float32) * 0.2
-
-    s_pr = p_pr.set_palette(p_pr.init_state(S), ids)
-    _, rgba_ref = jax.jit(p_pr.push_impl)(s_pr, jnp.asarray(pcm))
-
-    s = p.set_palette(p.init_state(S), ids)
-    assert p._state_perm(s) is not None  # single-process sorted (len 3)
-    sh = pmesh.shard_state(s, m, p)
-    assert p._tables_perm_global(sh.tables)
-    perm = np.asarray(sh.tables[1])
-    assert perm[:256].min() == 0 and perm[:256].max() == 255
-    assert perm[256:].min() == 256 and perm[256:].max() == 511  # confined
-    # carry at rest per-shard sorted
-    inv = np.asarray(sh.tables[2])
-    np.testing.assert_array_equal(
-        np.asarray(sh.carry)[inv], np.asarray(s_pr.carry)
-    )
-
-    # shard_map: every device sees a self-contained sorted slice
-    step = pmesh.shard_map_step(p, m, state=sh)
-    chunk = jax.device_put(jnp.asarray(pcm), pmesh.chunk_sharding(m))
-    sh1, packed, global_rows = step(sh, chunk)
-    assert int(global_rows) == S
-    np.testing.assert_array_equal(np.asarray(packed), np.asarray(rgba_ref))
-
-    # GSPMD jit: global-valued perm is correct under partitioning too
-    # (fresh state: the donating shard_map step above consumed buffers
-    # that device_put aliased with `s`)
-    sh2 = pmesh.shard_state(p.set_palette(p.init_state(S), ids), m, p)
-    step_g = pmesh.sharded_push(p, m, state=sh2)
-    sh3, rgba_g = step_g(sh2, chunk)
-    np.testing.assert_array_equal(np.asarray(rgba_g), np.asarray(rgba_ref))
-
-    # concrete set_palette on the sharded state re-sorts per shard
-    # (sh3 has advanced one push; advance the per-row reference to match)
-    ids2 = ((np.arange(S) + 1) % 2).astype(np.int32)
-    sh4 = p.set_palette(sh3, ids2)
-    assert p._tables_perm_global(sh4.tables)
-    s_pr_adv, _ = jax.jit(p_pr.push_impl)(s_pr, jnp.asarray(pcm))
-    s_pr2 = p_pr.set_palette(s_pr_adv, ids2)
-    pcm2 = rng.standard_normal((S, p.chunk_size, 2)).astype(np.float32) * 0.2
-    _, rgba_ref2 = jax.jit(p_pr.push_impl)(s_pr2, jnp.asarray(pcm2))
-    _, rgba4 = jax.jit(p.push_impl)(sh4, jnp.asarray(pcm2))
-    np.testing.assert_array_equal(np.asarray(rgba4), np.asarray(rgba_ref2))
-
-    # transition to uniform: carry returns to external order
-    sh5 = p.set_palette(sh4, 3)
-    assert p._state_perm(sh5) is None
-    s_pr3 = p_pr.set_palette(s_pr2, np.full(S, 3, np.int32))
-    np.testing.assert_array_equal(
-        np.asarray(sh5.carry), np.asarray(s_pr3.carry)
-    )
-
-    # unsort_state on the per-shard form: external order, plain tables
-    u = p.unsort_state(sh4)
-    assert p._state_perm(u) is None
-    np.testing.assert_array_equal(
-        np.asarray(u.carry), np.asarray(s_pr2.carry)
-    )
-
-
-def test_whole_state_global_sort_refuses_shard_specs(rng):
-    """A WHOLE-STATE global sort (length-4 with perm crossing shard
-    slices) is not shard-confinable: building mesh specs for it raises;
-    shard_state with the pipeline re-derives the per-shard form instead."""
-    m = pmesh.make_mesh(n_devices=2)
-    kw = dict(chunk_hops=1, store_ring=False, packed_output=True,
-              stft_backend="pallas", colormap_backend="pallas",
-              kernel_interpret=True)
-    # stream_blocks forces the whole-state GLOBAL sort at set_palette
-    p = SpectrogramPipeline(CFG, stream_blocks=128, **kw)
-    S = 512
-    ids = (np.arange(S) % 2).astype(np.int32)
-    s = p.set_palette(p.init_state(S), ids)
-    assert p._tables_perm_global(s.tables)
-    perm = np.asarray(s.tables[1])
-    assert perm[:256].max() > 255  # crosses the 2-shard slice boundary
-    with pytest.raises(ValueError, match="palette-sorted"):
-        pmesh.shard_map_step(p, m, state=s)
-    with pytest.raises(ValueError, match="palette-sorted"):
-        pmesh.shard_state(s, m)  # no pipeline: cannot re-derive
-    sh = pmesh.shard_state(s, m, p)  # re-sorts per shard
-    assert p._tables_perm_global(sh.tables)
-    assert pmesh._perm_shard_confined(sh.tables[1], 2)
-
-
-def test_per_shard_sorted_checkpoint_roundtrip(rng, tmp_path):
-    """npz checkpoints of PER-SHARD sorted states persist the EXTERNAL
-    carry order; restore re-derives the single-process sorted class and
-    re-sharding re-derives the per-shard form — pushes bitwise vs per-row
-    through the whole cycle."""
+def test_sharded_state_checkpoint_roundtrip(rng, tmp_path):
+    """A sharded state saves through npz (gathered to host) and restores
+    onto the mesh; pushes after the restore match pushes on the original."""
     from spectrogram_tpu.utils.checkpoint import load_state, save_state
 
-    m = pmesh.make_mesh(n_devices=2)
-    kw = dict(chunk_hops=1, store_ring=False, packed_output=True,
-              stft_backend="pallas", colormap_backend="pallas",
-              kernel_interpret=True)
-    p = SpectrogramPipeline(CFG, **kw)
-    p_pr = SpectrogramPipeline(CFG, palette_sort=False,
-                               blockwise_palettes=False, **kw)
-    S = 512
-    ids = (np.arange(S) % 2).astype(np.int32)
-    pcm = rng.standard_normal((S, p.chunk_size, 2)).astype(np.float32) * 0.2
-    sh = pmesh.shard_state(p.set_palette(p.init_state(S), ids), m, p)
-    assert p._tables_perm_global(sh.tables)
-    save_state(tmp_path / "ck.npz", sh, p.cfg, pipeline=p)
-    r = load_state(tmp_path / "ck.npz", p)  # single-process sorted class
-    assert p._state_perm(r) is not None
-    s_pr = p_pr.set_palette(p_pr.init_state(S), ids)
-    _, rgba_ref = jax.jit(p_pr.push_impl)(s_pr, jnp.asarray(pcm))
-    _, rgba_r = jax.jit(p.push_impl)(r, jnp.asarray(pcm))
-    np.testing.assert_array_equal(np.asarray(rgba_r), np.asarray(rgba_ref))
-    # and back onto the mesh: per-shard form again, same bytes
-    rs = pmesh.shard_state(r, m, p)
-    assert pmesh._perm_shard_confined(rs.tables[1], 2)
-    step = pmesh.shard_map_step(p, m, state=rs)
-    chunk = jax.device_put(jnp.asarray(pcm), pmesh.chunk_sharding(m))
-    _, packed, _ = step(rs, chunk)
-    np.testing.assert_array_equal(np.asarray(packed), np.asarray(rgba_ref))
+    p = SpectrogramPipeline(CFG, chunk_hops=4, packed_output=True)
+    m = pmesh.make_mesh()
+    step = pmesh.sharded_push(p, m)
+    s = pmesh.shard_state(
+        p.set_palette(p.init_state(8), np.arange(8) % 3), m
+    )
+
+    def chunk():
+        return jax.device_put(
+            jnp.asarray(
+                rng.standard_normal((8, p.chunk_size, 2)).astype(np.float32)
+            ),
+            pmesh.chunk_sharding(m),
+        )
+
+    s, _ = step(s, chunk())
+    save_state(tmp_path / "ck", s, CFG, pipeline=p)
+    r = pmesh.shard_state(load_state(tmp_path / "ck", p), m)
+    c = chunk()
+    _, out_s = step(s, c)
+    _, out_r = step(r, c)
+    np.testing.assert_array_equal(np.asarray(out_s), np.asarray(out_r))
